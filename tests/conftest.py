@@ -9,3 +9,7 @@ def pytest_configure(config):
         "slow: long-running tier (multi-device subprocess tests, the 60s "
         "mobv3 wall-time guard, hypothesis-heavy equivalence sweeps); "
         "PR CI runs -m 'not slow', the push-to-main full job runs all")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card with nvcc (the PyTorch port's CUDA "
+        "kernels); skips elsewhere")
