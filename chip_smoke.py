@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (nothing is caught and skipped):
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), and
-   the ``rir_matmul`` CUDA kernel built from ``src/repro_torch/kernels/csrc``
-   with ``nvcc`` (seconds and ``ptxas`` report printed).
+   the ``rir_matmul`` and ``gqa_decode`` CUDA kernels built from
+   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started together
+   (seconds and ``ptxas`` report printed).
 2. Planning: ResNet-50 and MobileNet-V3 at batch 8 with the serve engine's
    planner options, through one plan cache the engine then reuses.
 3. Kernel vs plain on the card: ``rir_matmul`` against
@@ -25,6 +26,22 @@ Phases, each of which raises on failure (nothing is caught and skipped):
 6. Throughput and profile: the same serving with tracing off, three
    windows of 400 requests for requests/s and its spread, then one more
    under ``torch.profiler``: the device's busy share and its time by kernel.
+7. ``gqa_decode`` against ``repro_torch.kernels.ref.gqa_decode`` on the
+   card: the JAX sweep's shapes in f32 and bf16 with lengths in [S/2, S],
+   a ragged S, length 1 and lengths on split boundaries; then the
+   llama3.2-3b decode shape (B 8, Hq 24, Hkv 8, D 128, S 1024, lengths
+   960-1023, bf16), timed over one cache per layer (as decode reads them)
+   against the plain version, ``scaled_dot_product_attention`` (yardstick
+   only) and the byte bound.
+8. LM serving (the LM path): ``api.ServeEngine`` on llama3.2-3b at full
+   width (28 layers, random weights from a seed) at ``max_batch=8``,
+   ``prompt_len=960``, ``gen=64``: 16 requests, 1764 ``gqa_decode``
+   launches a batch; 4 of them again one a batch, identical tokens; one
+   batch under ``torch.profiler``; decode logits at 4 teacher-forced steps
+   against ``hidden_states`` + ``logits`` of the whole sequence (bf16).
+9. The dense LM in f32 at reduced depth (llama3.2-3b widths, 2 layers, TF32
+   off): prefill and 7 decode steps on the card against the same weights
+   on the CPU (plain path), rtol/atol 2e-4.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -34,20 +51,27 @@ matmul and cuDNN, so every float32 comparison is float32 on both sides.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import itertools
 import json
 import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: fp32 on the CUDA cores and HBM3 bandwidth
+# NVIDIA H100 SXM data sheet: fp32 on the CUDA cores, bf16 on the tensor
+# cores, and HBM3 bandwidth
 FP32_PEAK_FLOPS = 67e12
+BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
 REPLACES = "src/repro/kernels/rir_matmul.py:66"
 SOURCE = "src/repro_torch/kernels/csrc/rir_matmul.cu"
+GQA_REPLACES = "src/repro/kernels/gqa_decode.py:61"
+GQA_SOURCE = "src/repro_torch/kernels/csrc/gqa_decode.cu"
 # float32 sums in another order than cuBLAS's: 2e-4 (the JAX kernel sweep's
 # tolerance); bf16 keeps 8 mantissa bits and the plain version rounds before
 # the residual add where the kernel adds in f32: 2e-2
@@ -62,6 +86,22 @@ BATCH = 8           # the serve engine's max_batch: the plans' batch extent
 N_REQUESTS = 20     # the bit-identity check's requests
 N_WINDOW = 400      # requests per untraced throughput window (50 batches)
 N_WINDOWS = 3
+# gqa_decode against its plain version: the JAX sweep's tolerances (softmax
+# sums in another order, merged across splits)
+GQA_TOL = {"f32": 5e-4, "bf16": 3e-2}
+# the LM path: llama3.2-3b at full width, random weights from LM_SEED
+LM_ARCH = "llama3p2_3b"
+LM_SMOKE = False
+LM_BATCH = 8
+LM_PROMPT = 960
+LM_GEN = 64                 # max_seq 1024: a multiple of 512, as in JAX
+LM_REQUESTS = 16
+LM_SEQ_REQUESTS = 4
+LM_SEED = 0
+LM_TF_STEPS = 4             # teacher-forced decode steps checked
+LM_TF_REL = 2e-2            # max |dlogit| <= LM_TF_REL * max |logit| (bf16)
+LM_F32 = {"n_layers": 2, "batch": 2, "prompt": 64, "gen": 8}
+LM_F32_TOL = 2e-4           # the JAX test_models.py prefill/decode bound
 
 
 def log(msg: str) -> None:
@@ -115,8 +155,21 @@ def check_network(name: str, got, want) -> dict:
             "ref_max_abs": scale}
 
 
+def device_time_by_kernel(prof):
+    """``[(device us, name, count)]`` from a ``torch.profiler`` run, largest
+    first, and their sum in ms (the device's busy time)."""
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    by_name = sorted(((dev_us(e), e.key, e.count)
+                      for e in prof.key_averages() if dev_us(e) > 0),
+                     reverse=True)
+    return by_name, sum(us for us, _, _ in by_name) / 1e3
+
+
 # ------------------------------------------------------------------- phases
-def phase_build(rk) -> dict:
+def phase_build(rk, gk) -> dict:
     import torch
     name = card_line()
     log(f"[device] {name}")
@@ -127,14 +180,21 @@ def phase_build(rk) -> dict:
     log("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
-    rk.load()
+    with ThreadPoolExecutor(max_workers=2) as ex:   # one nvcc each, at once
+        for fut in [ex.submit(m.load) for m in (rk, gk)]:
+            fut.result()
     secs = time.perf_counter() - t0
-    log(f"[build] {rk.library_path().name}: nvcc {rk.build_seconds:.1f} s, "
-        f"load {secs:.1f} s")
-    for line in rk.build_log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            log(f"[build] {line.strip()}")
-    return {"card": name, "build_s": secs}
+    for m in (rk, gk):
+        log(f"[build] {m.library_path().name}: nvcc {m.build_seconds:.1f} s")
+        for line in m.build_log.splitlines():
+            if "entry function" in line:
+                log(f"[build] {line.strip()[:110]}")
+            elif "registers" in line or "spill" in line or "smem" in line:
+                log(f"[build] {line.strip()}")
+    log(f"[build] both libraries built and loaded in {secs:.1f} s")
+    return {"card": name, "build_s": secs,
+            "nvcc_s": {"rir_matmul": rk.build_seconds,
+                       "gqa_decode": gk.build_seconds}}
 
 
 def phase_plan(api):
@@ -402,14 +462,7 @@ def phase_profile(torch, api, obs, cache, nets) -> dict:
             eng.serve(reqs)
             wall_s = time.perf_counter() - t0
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    by_name = sorted(((dev_us(e), e.key, e.count)
-                      for e in prof.key_averages() if dev_us(e) > 0),
-                     reverse=True)
-    busy_ms = sum(us for us, _, _ in by_name) / 1e3
+    by_name, busy_ms = device_time_by_kernel(prof)
     rec = {"requests": N_WINDOW,
            "requests_per_s_untraced": rates,
            "profiled_requests_per_s": N_WINDOW / wall_s,
@@ -418,6 +471,242 @@ def phase_profile(torch, api, obs, cache, nets) -> dict:
            "top_device_ms": [[name[:60], round(us / 1e3, 4), n]
                              for us, name, n in by_name[:8]]}
     log("[profile] " + json.dumps(rec))
+    return rec
+
+
+def phase_gqa_sweep(torch, ops, ref) -> dict:
+    """The JAX sweep's shapes, a ragged S, length 1 and lengths on split
+    boundaries, in f32 and bf16, against the plain version."""
+    from repro_torch.kernels.gqa_decode import SPLIT
+    gen = torch.Generator(device="cpu").manual_seed(5)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = [(2, 8, 2, 64, 512, None), (1, 4, 4, 128, 1024, None),
+             (3, 8, 1, 64, 2048, None),                     # the JAX sweep
+             (2, 8, 2, 128, 1000, None),                    # ragged S
+             (5, 6, 2, 128, 5 * SPLIT,                      # length 1, on
+              [1, SPLIT, SPLIT + 1, 2 * SPLIT, 5 * SPLIT])]  # split edges
+    worst, n = {"f32": 0.0, "bf16": 0.0}, 0
+    for b, hq, hkv, d, S, lens in cases:
+        for dt, tdt in dts.items():
+            q = torch.randn(b, hq, d, generator=gen).to(DEV, tdt)
+            k = torch.randn(b, S, hkv, d, generator=gen).to(DEV, tdt)
+            v = torch.randn(b, S, hkv, d, generator=gen).to(DEV, tdt)
+            ln = torch.tensor(lens, dtype=torch.int32) if lens else \
+                torch.randint(S // 2, S + 1, (b,), generator=gen,
+                              dtype=torch.int32)
+            ln = ln.to(DEV)
+            y = ops.gqa_decode(q, k, v, ln)
+            torch.cuda.synchronize()
+            name = f"gqa sweep {b}x{hq}/{hkv}x{d} S={S} {dt}"
+            if y.dtype != tdt or y.shape != q.shape:
+                raise AssertionError(f"{name}: {y.dtype} {y.shape}")
+            err = check_close(name, y, ref.gqa_decode(q, k, v, ln),
+                              GQA_TOL[dt], GQA_TOL[dt])
+            worst[dt] = max(worst[dt], err)
+            n += 1
+    log(f"[gqa] sweep: {n} cases within tolerance (f32 {GQA_TOL['f32']}, "
+        f"bf16 {GQA_TOL['bf16']}); worst |err| f32 {worst['f32']:.3e}, "
+        f"bf16 {worst['bf16']:.3e}")
+    return {"cases": n, "worst": worst}
+
+
+def phase_gqa_llama(torch, api, ops, ref) -> dict:
+    """``gqa_decode`` at the llama3.2-3b decode shape, bf16: checked, then
+    timed over one K/V cache per layer (0.94 GB in all, so each launch
+    finds its cache cold in the 50 MB L2, as a decode step does)."""
+    import torch.nn.functional as F
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    B, Hq, Hkv, D = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    S, L = LM_PROMPT + LM_GEN, cfg.n_layers
+    gen = torch.Generator(device=DEV).manual_seed(6)
+    q = torch.randn(B, Hq, D, generator=gen, device=DEV).to(torch.bfloat16)
+    ks = [torch.randn(B, S, Hkv, D, generator=gen, device=DEV)
+          .to(torch.bfloat16) for _ in range(L)]
+    vs = [torch.randn(B, S, Hkv, D, generator=gen, device=DEV)
+          .to(torch.bfloat16) for _ in range(L)]
+    lens = torch.randint(LM_PROMPT, S, (B,), generator=gen, device=DEV,
+                         dtype=torch.int32)
+    want = ref.gqa_decode(q, ks[0], vs[0], lens)
+    err = check_close("gqa llama shape", ops.gqa_decode(q, ks[0], vs[0],
+                                                        lens),
+                      want, GQA_TOL["bf16"], GQA_TOL["bf16"])
+    # the yardstick: one PyTorch call for the same function (not on the
+    # path): SDPA over (B, H, S, D) views of the same caches, length mask
+    mask = (torch.arange(S, device=DEV)[None, :] < lens[:, None]
+            )[:, None, None, :]
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], ks[i].transpose(1, 2), vs[i].transpose(1, 2),
+            attn_mask=mask, enable_gqa=True)[:, :, 0, :]
+    sdpa_err = check_close("sdpa yardstick", sdpa(0), want,
+                           GQA_TOL["bf16"], GQA_TOL["bf16"])
+    def each_layer(fn):
+        """``fn(i)`` on the next layer's cache at every call."""
+        order = itertools.cycle(range(L))
+        return lambda: fn(next(order))
+
+    ms = cuda_ms(each_layer(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens)),
+                 iters=4 * L, warmup=L)
+    plain_ms = cuda_ms(each_layer(lambda i: ref.gqa_decode(q, ks[i], vs[i],
+                                                           lens)),
+                       iters=L, warmup=2)
+    library_ms = cuda_ms(each_layer(sdpa), iters=4 * L, warmup=L)
+    n_valid = int(lens.sum())
+    nbytes = 2.0 * (2 * n_valid * Hkv * D + 2 * B * Hq * D) + 4 * B
+    flops = 4.0 * n_valid * Hq * D          # q.k and p.v, 2 FLOP a MAC
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / BF16_PEAK_FLOPS * 1e3
+    rec = {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
+           "lengths": lens.tolist(), "max_abs_err": err,
+           "sdpa_max_abs_err": sdpa_err, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(byte_ms, flop_ms),
+           "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
+           "mbytes": nbytes / 1e6, "mflop": flops / 1e6,
+           "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9}
+    log("[gqa] llama shape " + json.dumps(rec))
+    del ks, vs
+    torch.cuda.empty_cache()
+    return rec
+
+
+def lm_teacher_forced(torch, model, prompts, gen_tokens) -> dict:
+    """Decode logits at ``LM_TF_STEPS`` steps fed the served tokens, against
+    ``hidden_states`` + ``logits`` of the whole sequence at the same
+    positions; max |d| <= LM_TF_REL * max |ref|."""
+    import numpy as np
+    P, n = len(prompts[0]), LM_TF_STEPS
+    toks = torch.from_numpy(np.stack(prompts).astype(np.int64)).to(DEV)
+    fed = torch.from_numpy(np.stack(gen_tokens)[:, :n].astype(np.int64)
+                           ).to(DEV)
+    with torch.inference_mode():
+        cache, _ = model.prefill(toks, P + n)
+        dec = []
+        for j in range(n):
+            cache, logits = model.decode_step(cache, fed[:, j])
+            dec.append(logits.float())
+        dec = torch.stack(dec, dim=1)                       # (B, n, V)
+        hid = model.hidden_states(torch.cat([toks, fed], dim=1))
+        full = model.logits(hid[:, P:P + n]).float()        # (B, n, V)
+    err = float((dec - full).abs().max())
+    scale = float(full.abs().max())
+    rec = {"steps": n, "max_abs_err": err, "ref_max_abs": scale,
+           "ratio": err / scale, "limit": LM_TF_REL}
+    if not err <= LM_TF_REL * scale:
+        raise AssertionError(f"teacher-forced decode: max |err| {err:.3e} "
+                             f"beyond {LM_TF_REL} x {scale:.3e}")
+    return rec
+
+
+def phase_lm_serve(torch, api, gk, obs) -> dict:
+    """The LM path: llama3.2-3b served at full width on the card."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    rng = np.random.default_rng(7)
+    reqs = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
+            for _ in range(LM_REQUESTS)]
+    kw = dict(arch=LM_ARCH, smoke=LM_SMOKE, max_batch=LM_BATCH,
+              prompt_len=LM_PROMPT, gen=LM_GEN, seed=LM_SEED, device=DEV)
+    per_batch = (LM_GEN - 1) * cfg.n_layers
+    t0 = time.perf_counter()
+    eng = api.ServeEngine(api.ServeConfig(workers=1, **kw))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model = eng.model
+    n_params = sum(p.numel() for p in model.params().values())
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "init_s": init_s, "requests": LM_REQUESTS, "batch": LM_BATCH,
+           "prompt_len": LM_PROMPT, "gen": LM_GEN}
+    with eng:
+        eng.serve(reqs[:1])                        # warm the path
+        obs.reset()
+        obs.enable()
+        gk.reset_launch_count()                    # the LM path starts here
+        t0 = time.perf_counter()
+        outs = eng.serve(reqs)
+        secs = time.perf_counter() - t0
+        launches = gk.launch_count()               # ... and ends here
+        batches = int(obs.counter_value("serve.batches"))
+        prefill = obs.hist_stats("serve.prefill_ms")
+        decode = obs.hist_stats("serve.decode_ms_per_token")
+        obs.reset()                                # profile untraced
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.serve(reqs[:LM_BATCH])
+            wall_s = time.perf_counter() - t0
+    if launches != per_batch * batches or launches == 0:
+        raise AssertionError(f"LM serve: {launches} gqa_decode launches for "
+                             f"{batches} batches ({per_batch} a batch)")
+    for o in outs:
+        if o.shape != (LM_GEN,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise AssertionError(f"LM serve: bad tokens {o.shape}")
+    by_name, busy_ms = device_time_by_kernel(prof)
+    rec.update({
+        "gqa_launches": launches, "batches": batches,
+        "gqa_launches_per_batch": launches / batches, "seconds": secs,
+        "requests_per_s": LM_REQUESTS / secs,
+        "generated_tokens_per_s": LM_REQUESTS * LM_GEN / secs,
+        "prefill_ms": prefill, "decode_ms_per_token": decode,
+        "profiled_batch_wall_ms": wall_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (wall_s * 1e3),
+        "device_ops": sum(n for _, _, n in by_name),
+        "top_device_ms": [[name[:60], round(us / 1e3, 4), n]
+                          for us, name, n in by_name[:12]]})
+    log("[lm] " + json.dumps(rec))
+    # the same requests one a batch, through an engine given the same
+    # weights: identical tokens
+    with api.ServeEngine(api.ServeConfig(workers=1, assemble_max=1, **kw),
+                         weights=model.params()) as seq:
+        seq_outs = seq.serve(reqs[:LM_SEQ_REQUESTS])
+    for i, (a, b) in enumerate(zip(outs, seq_outs)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"LM request {i}: batched != sequential")
+    log(f"[lm] {LM_SEQ_REQUESTS} requests served one a batch: tokens "
+        f"identical to the batched run")
+    rec["teacher_forced"] = lm_teacher_forced(
+        torch, model, reqs[:LM_BATCH], outs[:LM_BATCH])
+    log("[lm] teacher-forced bf16 " + json.dumps(rec["teacher_forced"]))
+    del eng, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_lm_f32(torch, api, gk) -> dict:
+    """llama3.2-3b widths in f32 at reduced depth: the port on the card
+    against the port on the CPU (plain path), teacher-forced with the CPU's
+    greedy tokens."""
+    import numpy as np
+    c = LM_F32
+    cfg = dataclasses.replace(api.get_config(LM_ARCH, smoke=LM_SMOKE),
+                              n_layers=c["n_layers"], dtype="float32")
+    cpu = api.build_model(cfg).init(torch.Generator().manual_seed(8))
+    dev = api.build_model(cfg, device=DEV).load_params(cpu.params())
+    toks = torch.from_numpy(np.random.default_rng(9).integers(
+        0, cfg.vocab, size=(c["batch"], c["prompt"])))
+    S = c["prompt"] + c["gen"]
+    worst, scale, launches = 0.0, 0.0, 0
+    with torch.inference_mode():
+        c_cpu, l_cpu = cpu.prefill(toks, S)
+        c_dev, l_dev = dev.prefill(toks.to(DEV), S)
+        for step in range(c["gen"]):
+            if step:
+                tok = torch.argmax(l_cpu, dim=-1)
+                c_cpu, l_cpu = cpu.decode_step(c_cpu, tok)
+                before = gk.launch_count()
+                c_dev, l_dev = dev.decode_step(c_dev, tok.to(DEV))
+                launches += gk.launch_count() - before
+            got = l_dev.cpu()
+            worst = max(worst, check_close(f"f32 LM step {step}", got, l_cpu,
+                                           LM_F32_TOL, LM_F32_TOL))
+            scale = max(scale, float(l_cpu.abs().max()))
+    if launches != (c["gen"] - 1) * cfg.n_layers:
+        raise AssertionError(f"f32 LM: {launches} gqa_decode launches")
+    rec = {**c, "d_model": cfg.d_model, "max_abs_err": worst,
+           "ref_max_abs": scale, "tol": LM_F32_TOL, "gqa_launches": launches}
+    log("[lm-f32] " + json.dumps(rec))
     return rec
 
 
@@ -433,26 +722,38 @@ def main(argv=None) -> int:
               "an NVIDIA card only", file=sys.stderr)
         return 1
     from repro_torch import api, obs
+    from repro_torch.kernels import gqa_decode as gk
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rir_matmul as rk
 
     t_start = time.perf_counter()
-    record = {"build": phase_build(rk)}
+    record = {"build": phase_build(rk, gk)}
     cache, nets = phase_plan(api)
     record["sweep_worst_f32_err"] = phase_kernel_sweep(torch, ops, ref)
     record["resnet50_steps"] = phase_kernel_resnet(torch, api, ops, ref, nets)
     record["networks"] = phase_networks(torch, api, rk, obs, nets)
     record["serve"] = phase_serve(torch, api, rk, obs, cache, nets)
     record["profile"] = phase_profile(torch, api, obs, cache, nets)
+    record["gqa_sweep"] = phase_gqa_sweep(torch, ops, ref)
+    record["gqa_llama"] = phase_gqa_llama(torch, api, ops, ref)
+    record["lm_serve"] = phase_lm_serve(torch, api, gk, obs)
+    record["lm_f32"] = phase_lm_f32(torch, api, gk)
     record["seconds"] = time.perf_counter() - t_start
     tot = record["resnet50_steps"]["total"]
+    gq = record["gqa_llama"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
         "launches": record["serve"]["batched"]["launches"],
         "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
-        "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}]}
+        "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}, {
+        "name": "gqa_decode", "route": "cuda", "source": GQA_SOURCE,
+        "replaces": GQA_REPLACES,
+        "launches": record["lm_serve"]["gqa_launches"],
+        "max_abs_err": gq["max_abs_err"], "ms": gq["ms"],
+        "plain_ms": gq["plain_ms"], "bound_ms": gq["bound_ms"],
+        "bound_by": gq["bound_by"], "library_ms": gq["library_ms"]}]}
     record["kernels"] = kernels["kernels"]
     if args.out:
         path = pathlib.Path(args.out)

@@ -2,7 +2,8 @@
 
 The counterpart of ``repro.api`` for what the port runs so far: planning,
 execution of planned networks through the hand-written ``rir_matmul``
-kernel, and serving.  Entry points take ``device="cuda"`` by default and
+kernel, the dense LMs (their decode attention through the hand-written
+``gqa_decode`` kernel), and serving of both.  Entry points take ``device="cuda"`` by default and
 raise where CUDA is absent; ``device="cpu"`` runs the plain PyTorch path.
 The function wrappers take keyword-only arguments beyond their primary
 operands, as ``repro.api``'s do.
@@ -13,6 +14,11 @@ Typical use::
 
     with api.ServeEngine(api.ServeConfig(graph="resnet50", max_batch=8)) as eng:
         outs = eng.serve(samples)
+
+    cfg = api.ServeConfig(arch="llama3p2_3b", max_batch=8, prompt_len=960,
+                          gen=64)
+    with api.ServeEngine(cfg) as eng:
+        tokens = eng.serve(prompts)          # each (gen,) int32
 """
 from __future__ import annotations
 
@@ -20,9 +26,11 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.layout import Layout
 from repro_torch.core.layoutloop import EvalConfig
 from repro_torch.core.workloads import init_graph_weights
+from repro_torch.models import build_model
 from repro_torch.plan import (ExecutionPlan, LayerGraph, PlanCache,
                               PlannerOptions, PreparedNetwork, ResolvedPlan,
                               execute_network_reference, fold_batchnorm,
@@ -35,7 +43,7 @@ from repro_torch.plan import resolve_plan as _resolve_plan
 from repro_torch.plan import upgrade_plan as _upgrade_plan
 from repro_torch.serve import (QueueFullError, ServeConfig, ServeEngine,
                                ServeTicket)
-from repro_torch.weights import to_torch_weights
+from repro_torch.weights import to_torch_lm_params, to_torch_weights
 
 
 def plan_network(graph: LayerGraph, cfg: EvalConfig, *,
@@ -92,6 +100,8 @@ __all__ = [
     "PreparedNetwork", "prepare_network", "execute_network",
     "execute_network_reference", "fold_batchnorm", "step_kernel_blocks",
     "init_graph_weights", "to_torch_weights",
+    # models
+    "ARCH_IDS", "get_config", "build_model", "to_torch_lm_params",
     # serving
     "ServeEngine", "ServeConfig", "ServeTicket", "QueueFullError",
 ]

@@ -12,6 +12,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 
 from . import ref
+from .gqa_decode import gqa_decode_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
 
 Perm = Union[Sequence[int], torch.Tensor, None]
@@ -73,4 +74,20 @@ def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
     return rir_matmul_cuda(a, b, perm_t, residual=residual, block_n=block_n)
 
 
-__all__ = ["rir_matmul", "device_perm", "TILE_N"]
+def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode attention: ``(B, Hq, D)`` in q's dtype.
+
+    q (B, Hq, D); k/v (B, S, Hkv, D); lengths (B,) valid KV length, on q's
+    device.  Any S runs the kernel: it masks a ragged last tile itself, so
+    the JAX wrapper's route to the plain version for an S its block does
+    not tile has no counterpart, and neither has its ``block_s`` hint.
+    """
+    if q.device.type == "cpu":
+        return ref.gqa_decode(q, k, v, lengths)
+    if q.device.type != "cuda":
+        raise ValueError(f"gqa_decode runs on cpu or cuda, not {q.device}")
+    return gqa_decode_cuda(q, k, v, lengths.to(torch.int32))
+
+
+__all__ = ["rir_matmul", "device_perm", "gqa_decode", "TILE_N"]

@@ -4,7 +4,7 @@ Each function is the semantic ground truth its kernel is held against: the
 CPU tests compare them with the JAX package's oracles, and ``chip_smoke.py``
 compares the CUDA kernel with them on the card.  Layouts at the public
 functions are the JAX package's: NHWC activations, ``(R, S, C, M)`` conv
-weights, ``(R, S, M)`` depthwise weights.
+weights, ``(R, S, M)`` depthwise weights, ``(B, S, Hkv, D)`` KV caches.
 """
 from __future__ import annotations
 
@@ -79,3 +79,28 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
             tap = _taps(x, r, s, P, Q, stride)
             y = y + tap.float() * w[r, s].float()
     return y.to(x.dtype)
+
+
+# ----------------------------------------------------------------- gqa_decode
+def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               lengths: Optional[torch.Tensor] = None,
+               scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token GQA decode attention.
+
+    q: (B, Hq, D); k/v: (B, S, Hkv, D); lengths: (B,) valid KV length.
+    Hq = G * Hkv.  Returns (B, Hq, D).  Masks with -inf, so a row of
+    length 0 gives NaN.
+    """
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, G, D)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float(), k.float()) * scale
+    if lengths is not None:
+        pos = torch.arange(S, device=q.device)
+        mask = pos[None, None, None, :] < lengths[:, None, None, None]
+        scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
+    return out.reshape(B, Hq, D).to(q.dtype)

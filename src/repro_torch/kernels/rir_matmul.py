@@ -6,36 +6,30 @@ epilogue stores output column block ``j`` at block slot ``perm[j]``, so the
 producing GEMM writes the consumer's layout directly (Reorder-In-Reduction),
 with an optional residual read through the same permuted map.
 
-Build: at first CUDA use ``nvcc`` compiles the source for ``sm_90a`` into a
-shared library with a plain C interface under ``build/kernels/`` at the root
-of the checkout, named by a hash of the source and flags, and ``ctypes``
-loads it.  Importing this module builds nothing, so it imports on machines
-without CUDA; a missing ``nvcc`` or a failed compile raises with the
-compiler's output.  There is no fallback: a CUDA tensor gets the kernel or an
+Build: at first CUDA use ``build.load`` compiles the source with ``nvcc``
+for ``sm_90a`` into ``build/kernels/`` and binds it with ``ctypes``.
+Importing this module builds nothing, so it imports on machines without
+CUDA.  There is no fallback: a CUDA tensor gets the kernel or an
 exception.
 """
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 import threading
-import time
 import weakref
 from typing import Dict, Optional, Tuple
 
 import torch
 
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "rir_matmul.cu"
-BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import build as _build
+from .build import BUILD_DIR  # noqa: F401  (re-exported: where it builds)
+
+NAME = "rir_matmul"
+SOURCE = _build.CSRC / f"{NAME}.cu"
 #: the kernel's output tile width: ``block_n`` must be a multiple of it
 TILE_N = 64
 DTYPES = (torch.float32, torch.bfloat16)
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
 _lock = threading.Lock()
 _lib = None
@@ -47,54 +41,19 @@ build_log = ""
 build_seconds = 0.0
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the rir_matmul CUDA kernel is "
-                       "compiled from source at first CUDA use and needs "
-                       "the CUDA toolkit")
-
-
-def library_path() -> pathlib.Path:
+def library_path():
     """Where the built library lives, keyed by a hash of source + flags."""
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"librir_matmul-{h.hexdigest()[:16]}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the kernel unless this source was already built; its path."""
-    global build_log, build_seconds
-    path = library_path()
-    if path.exists():
-        return path
-    path.parent.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}: "
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)      # atomic: a concurrent loader sees all or none
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    return path
+    return _build.library_path(NAME)
 
 
 def load() -> ctypes.CDLL:
     """Build (if needed) and bind the library; thread-safe, once a process."""
-    global _lib
+    global _lib, build_log, build_seconds
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name in ("rir_matmul_f32", "rir_matmul_bf16"):
-                fn = getattr(lib, name)
-                fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 \
-                    + [ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            _lib = lib
+            _lib, build_log, build_seconds = _build.load(
+                NAME, {"rir_matmul_f32": _ARGTYPES,
+                       "rir_matmul_bf16": _ARGTYPES})
     return _lib
 
 

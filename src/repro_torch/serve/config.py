@@ -3,14 +3,17 @@
 The port's copy of ``repro.serve.config``, shared by the engine
 (``ServeEngine(config)``), ``chip_smoke.py`` and the tests, with the JAX
 package's ``use_pallas`` switch replaced by ``device`` ("cuda" by default,
-"cpu" for the plain path).  The LM-only fields (``smoke``, ``prompt_len``,
-``gen``, ``model_axis``) come with LM serving, and the CLI glue
-(``add_args`` / ``from_args``) with the port of ``launch/serve.py``.
+"cpu" for the plain path).  ``model_axis`` comes with the mesh (ROADMAP
+Queue 1 item 10), and the CLI glue (``add_args`` / ``from_args``) with the
+port of ``launch/serve.py``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional, Tuple
+
+from repro_torch.configs import get_config
+from repro_torch.models.lm import check_family
 
 #: graph names the network-serving mode accepts (``repro.obs.smoke``'s set)
 GRAPH_NAMES = ("tiny", "resnet50", "mobv3")
@@ -25,11 +28,13 @@ DEFAULT_LAYOUTS = ("HWC_C32", "HWC_H32")
 class ServeConfig:
     """Everything the serve engine, CLI, benchmark and tests agree on.
 
-    Exactly one of ``arch`` (LM serving: prefill + decode through the model
-    stack) or ``graph`` (planned-network serving: ``PreparedNetwork``
-    through the ``rir_matmul`` kernel on ``device``) selects the workload.
-    The port serves planned networks only so far: ``arch=`` raises
-    ``NotImplementedError``.  ``max_batch`` is
+    Exactly one of ``arch`` (LM serving: prefill + greedy decode through
+    the model stack, every decode step's attention through the
+    ``gqa_decode`` kernel on ``device``) or ``graph`` (planned-network
+    serving: ``PreparedNetwork`` through the ``rir_matmul`` kernel) selects
+    the workload.  The port serves dense LMs so far: an ``arch`` of another
+    family raises ``NotImplementedError`` naming its ROADMAP item.
+    ``max_batch`` is
     the batch extent the plan is built at — the ceiling for dynamic batch
     assembly; ``assemble_max`` caps how many queued requests one batch may
     actually carry (``None`` = ``max_batch``; ``1`` is the sequential
@@ -37,9 +42,12 @@ class ServeConfig:
     shapes, no batching).
     """
 
-    arch: Optional[str] = None          # LM mode: raises until it is ported
+    arch: Optional[str] = None          # LM mode: a repro_torch.configs id
     graph: Optional[str] = None         # network mode: tiny|resnet50|mobv3
+    smoke: bool = False                 # shrink the LM config for CI
     max_batch: int = 4
+    prompt_len: int = 32                # LM: tokens every request carries
+    gen: int = 16                       # LM: tokens generated per request
     plan: Optional[str] = None          # pinned plan artifact path
     plan_deadline: float = 30.0         # seconds before degrading to fixed
     layouts: Optional[Tuple[str, ...]] = DEFAULT_LAYOUTS  # None = full space
@@ -56,9 +64,9 @@ class ServeConfig:
             raise ValueError("exactly one of arch= (LM serving) or graph= "
                              "(planned-network serving) must be set")
         if self.arch is not None:
-            raise NotImplementedError(
-                "LM serving is not ported yet: ROADMAP.md Queue 1 item 6 "
-                "(dense and MoE LMs, with the LM serve backend)")
+            check_family(get_config(self.arch, smoke=self.smoke))
+            if self.prompt_len < 1 or self.gen < 1:
+                raise ValueError("prompt_len and gen must be >= 1")
         if self.graph is not None and self.graph not in GRAPH_NAMES:
             raise ValueError(f"graph {self.graph!r} not in {GRAPH_NAMES}")
         if self.max_batch < 1 or self.queue_capacity < 1 or self.workers < 1:

@@ -1,23 +1,27 @@
-"""Continuous-batching serve engine for planned networks.
+"""Continuous-batching serve engine for planned networks and dense LMs.
 
-The port of ``repro.serve.engine`` for planned networks: requests enter a
-bounded admission queue, worker threads assemble dynamic batches up to the
-plan tile's batch extent (pad-and-mask — outputs are bit-identical to
-serving each request alone, asserted in the tests), and every batch runs
-through one ``PreparedNetwork`` built on ``config.device``: one
-host-to-device copy of the assembled batch, one ``rir_matmul`` launch per
-layer, one device-to-host copy of the results.  Plan resolution rides the
+The port of ``repro.serve.engine``: requests enter a bounded admission
+queue, worker threads assemble dynamic batches up to the plan tile's batch
+extent (pad-and-mask — outputs are bit-identical to serving each request
+alone, asserted in the tests), and every batch runs on ``config.device``
+through one of two backends.  Planned networks go through one
+``PreparedNetwork``: one host-to-device copy of the assembled batch, one
+``rir_matmul`` launch per layer, one device-to-host copy of the results.
+LMs (``arch=``, dense family) run prefill, then greedy decode: every
+decode step's attention layers each launch ``gqa_decode`` once, the tokens
+stay on the device, and one copy at the end brings the batch's tokens
+back.  Plan resolution rides the
 degradation ladder (``repro_torch.plan.resolve_plan``) against a warm
 ``PlanCache`` shared across workers, and a request admitted at a degraded
 tier upgrades itself: a background thread retries the full planner
 (``repro_torch.plan.upgrade_plan``) and atomically swaps in the tier-1
 prepared network once it recovers — the serving loop never blocks on
-planning.  LM serving is not ported yet (``ServeConfig(arch=...)`` raises).
+planning.
 
 Pipeline::
 
     submit() -> [bounded queue] -> assembler (<= plan batch extent)
-             -> PreparedNetwork -> per-request results
+             -> PreparedNetwork / LM prefill+decode -> per-request results
                           ^ background tier upgrader (degraded plans only)
 
 Backpressure is a *typed* contract: a full queue (or an injected
@@ -25,7 +29,9 @@ Backpressure is a *typed* contract: a full queue (or an injected
 with ``QueueFullError`` immediately; admission never blocks and never
 deadlocks.  Observability: ``serve.queue_depth`` gauge,
 ``serve.batch_size`` / ``serve.time_in_queue_ms`` / ``serve.ttft_ms`` /
-``serve.e2e_ms`` histograms, ``serve.requests`` / ``serve.rejected{reason=}``
+``serve.e2e_ms`` (and, for LMs, ``serve.prefill_ms`` /
+``serve.decode_ms_per_token``, fenced with ``torch.cuda.synchronize``)
+histograms, ``serve.requests`` / ``serve.rejected{reason=}``
 / ``serve.batches`` / ``serve.plan_upgrade`` counters, and a ``serve.batch``
 span carrying ``plan_id`` / ``plan_tier`` / ``plan_reason``.
 """
@@ -91,9 +97,10 @@ class ServeTicket:
         return self._event.is_set()
 
     def result(self, timeout: Optional[float] = None):
-        """The request's output: its own sample's activation (numpy).
-        Raises the batch's failure, or ``TimeoutError`` if not served
-        within ``timeout`` seconds."""
+        """The request's output (LM: its generated int32 tokens; network:
+        its own sample's activation), as numpy.  Raises the batch's
+        failure, or ``TimeoutError`` if not served within ``timeout``
+        seconds."""
         if not self._event.wait(timeout):
             raise TimeoutError(f"request {self.rid} not served within "
                                f"{timeout}s")
@@ -103,7 +110,7 @@ class ServeTicket:
 
 
 # ========================================================================
-# Backend: what one assembled batch *does*
+# Backends: what one assembled batch *does*
 # ========================================================================
 def build_graph(name: str):
     """The layer graph a ``ServeConfig.graph`` name serves (the JAX
@@ -173,6 +180,102 @@ class _NetworkBackend:
                                device=self.config.device)
 
 
+class _LMBackend:
+    """LM serving: prefill, then greedy decode, on ``config.device``."""
+
+    def __init__(self, config: ServeConfig, cache, weights,
+                 sleep: Callable[[float], None]):
+        import torch
+
+        from repro_torch.configs import get_config
+        from repro_torch.device import resolve_device
+        from repro_torch.models import build_model
+
+        self.device = resolve_device(config.device)   # before building
+        self.config = config
+        self.cache = cache
+        self.cfg = get_config(config.arch, smoke=config.smoke)
+        self.resolved = None
+        self.graph = None
+        if config.plan is not None:
+            from repro_torch.core.layoutloop import EvalConfig
+            from repro_torch.plan import from_arch_config, resolve_plan
+
+            self.eval_cfg = EvalConfig()
+            self.opts = _planner_options(config)
+            self.graph = from_arch_config(
+                self.cfg, seq=config.prompt_len + config.gen)
+            with obs.span("serve.plan", {"arch": self.cfg.name}):
+                self.resolved = resolve_plan(
+                    self.graph, self.eval_cfg, self.opts, cache=cache,
+                    artifact=config.plan, deadline_s=config.plan_deadline,
+                    sleep=sleep)
+        self.model = build_model(self.cfg, device=self.device)
+        if weights is not None:
+            self.model.load_params(weights)
+        else:
+            self.model.init(torch.Generator(device=self.device)
+                            .manual_seed(config.seed))
+        self.max_seq = config.prompt_len + config.gen
+
+    @property
+    def prepared(self):
+        return None   # decode runs through the model's own step
+
+    @property
+    def sample_shape(self):
+        return (self.config.prompt_len,)
+
+    def validate(self, payload) -> None:
+        a = np.asarray(payload)
+        if a.shape != self.sample_shape:
+            raise ServeError(f"prompt shape {a.shape} != "
+                             f"({self.config.prompt_len},) — requests carry "
+                             f"exactly prompt_len tokens")
+
+    def _fence(self) -> None:
+        import torch
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def run(self, _prepared, payloads: Sequence) -> List[np.ndarray]:
+        import torch
+
+        B = self.config.max_batch
+        k = len(payloads)
+        prompts = np.zeros((B, self.config.prompt_len), np.int64)
+        for i, p in enumerate(payloads):
+            prompts[i] = np.asarray(p, np.int64)
+        gen = self.config.gen
+        with torch.inference_mode():
+            tokens = torch.from_numpy(prompts).to(self.device)
+            t0 = time.perf_counter()
+            cache, logits = self.model.prefill(tokens, self.max_seq)
+            self._fence()
+            t_prefill = time.perf_counter() - t0
+            obs.observe("serve.prefill_ms", t_prefill * 1e3)
+            tok = torch.argmax(logits, dim=-1)
+            out = [tok]
+            t0 = time.perf_counter()
+            for _ in range(gen - 1):
+                cache, logits = self.model.decode_step(cache, tok)
+                tok = torch.argmax(logits, dim=-1)
+                out.append(tok)
+            self._fence()
+            t_decode = time.perf_counter() - t0
+            # the one device-to-host copy: (B, gen) tokens
+            toks = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+        if gen > 1:
+            obs.observe("serve.decode_ms_per_token",
+                        t_decode * 1e3 / (gen - 1))
+        log.debug("batch of %d: prefill %.1f ms; decode %.1f ms/token",
+                  k, t_prefill * 1e3, t_decode * 1e3 / max(1, gen - 1))
+        return [toks[i] for i in range(k)]
+
+    def upgraded(self, resolved):
+        return None
+
+
 def _planner_options(config: ServeConfig):
     from repro_torch.core.layout import Layout
     from repro_torch.plan import PlannerOptions
@@ -191,7 +294,7 @@ _SENTINEL = object()
 
 
 class ServeEngine:
-    """Request-level continuous batching over a planned network.
+    """Request-level continuous batching over a planned network or LM.
 
     Construction resolves the plan (degradation ladder + shared cache) and
     hoists all per-plan setup; ``start()`` spawns the assembler workers;
@@ -200,6 +303,10 @@ class ServeEngine:
 
         with ServeEngine(ServeConfig(graph="tiny", max_batch=4)) as eng:
             outs = eng.serve(samples)
+
+    ``weights``: the network's per-layer weights (network mode) or the
+    LM's named parameters from ``to_torch_lm_params`` (LM mode); None
+    draws them from ``config.seed``.
     """
 
     def __init__(self, config: ServeConfig, *, cache=None, graph=None,
@@ -211,8 +318,11 @@ class ServeEngine:
         self.cache = cache if cache is not None else PlanCache()
         if config.log_level:
             obs.set_level(config.log_level)
-        self._backend = _NetworkBackend(config, self.cache, graph, weights,
-                                        sleep)
+        if config.arch is not None:
+            self._backend = _LMBackend(config, self.cache, weights, sleep)
+        else:
+            self._backend = _NetworkBackend(config, self.cache, graph,
+                                            weights, sleep)
         self._resolved = self._backend.resolved
         self._prepared = self._backend.prepared
         self._swap_lock = threading.Lock()
@@ -286,12 +396,19 @@ class ServeEngine:
         with self._swap_lock:
             return self._resolved
 
+    @property
+    def model(self):
+        """The served LM (``repro_torch.models.LMModel``, LM mode), else
+        None."""
+        return getattr(self._backend, "model", None)
+
     def queue_depth(self) -> int:
         return self._queue.qsize()
 
     @property
     def sample_shape(self):
-        """Per-request payload shape: the planned per-sample activation."""
+        """Per-request payload shape: the planned per-sample activation
+        shape (network mode) or ``(prompt_len,)`` of int tokens (LM)."""
         return self._backend.sample_shape
 
     def submit(self, payload) -> ServeTicket:
@@ -402,8 +519,8 @@ class ServeEngine:
         for t, out in zip(batch, outs):
             t._resolve(value=out)
             if traced:
-                # one network pass yields each request's first and only
-                # output tensor
+                # one batch yields each request's first (and, for the
+                # network backend, only) output token/tensor
                 obs.observe("serve.ttft_ms", (done - t.submit_us) / 1e3)
                 obs.observe("serve.e2e_ms", (done - t.submit_us) / 1e3)
 

@@ -1,19 +1,21 @@
-"""The port's CUDA kernel on the card (marked ``cuda``; skips without one).
+"""The port's CUDA kernels on the card (marked ``cuda``; skip without one).
 
 Run on a machine with an NVIDIA card and ``nvcc``:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same device
-(2e-4 for f32: fp32 sums in another order; 2e-2 for bf16), and the
-executor's batched output against the same requests run one at a time,
-bit for bit.
+Each kernel is held against its plain PyTorch version on the same device:
+``rir_matmul`` at 2e-4 for f32 (fp32 sums in another order) and 2e-2 for
+bf16, ``gqa_decode`` at the JAX sweep's 5e-4 / 3e-2 (softmax sums in
+another order, merged across splits).  Served outputs, batched against the
+same requests one at a time, agree bit for bit.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import gqa_decode as gk
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rir_matmul as rk
 
@@ -91,3 +93,96 @@ def test_served_batches_equal_sequential_on_card(cuda):
         want = seq.serve(samples)
     for a, b in zip(got, want):
         assert np.array_equal(a, b)
+
+
+# ------------------------------------------------------------------ gqa_decode
+def _gqa_inputs(b, hq, hkv, d, s, dtype, device, seed):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, hq, d, generator=gen).to(device, dtype)
+    k = torch.randn(b, s, hkv, d, generator=gen).to(device, dtype)
+    v = torch.randn(b, s, hkv, d, generator=gen).to(device, dtype)
+    lens = torch.randint(s // 2, s + 1, (b,), generator=gen,
+                         dtype=torch.int32).to(device)
+    return q, k, v, lens
+
+
+@pytest.mark.parametrize("b,hq,hkv,d,s", [
+    (2, 8, 2, 64, 512), (1, 4, 4, 128, 1024), (3, 8, 1, 64, 2048),  # JAX's
+    (8, 24, 8, 128, 1024),          # llama3.2-3b at max_seq 1024
+    (2, 8, 2, 128, 1000),           # ragged S
+    (2, 4, 2, 16, 100), (1, 16, 2, 256, 300),   # smallest and largest D
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_gqa_decode_matches_plain_on_card(cuda, b, hq, hkv, d, s, dtype,
+                                          tol):
+    q, k, v, lens = _gqa_inputs(b, hq, hkv, d, s, dtype, cuda, b + s + d)
+    before = gk.launch_count()
+    y = ops.gqa_decode(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert gk.launch_count() == before + 1
+    assert y.dtype == dtype and y.shape == q.shape
+    torch.testing.assert_close(y.float(), ref.gqa_decode(q, k, v, lens)
+                               .float(), rtol=tol, atol=tol)
+
+
+def test_gqa_decode_lengths_on_card(cuda):
+    """Length 1, lengths on and either side of a split boundary, the whole
+    cache; what lies past a row's length (NaN here) never reaches it; and a
+    row's output does not depend on the rows decoded beside it."""
+    S = 4 * gk.SPLIT + 40
+    q, k, v, _ = _gqa_inputs(7, 6, 2, 128, S, torch.float32, cuda, 9)
+    lens = torch.tensor([1, gk.SPLIT - 1, gk.SPLIT, gk.SPLIT + 1,
+                         2 * gk.SPLIT, S - 1, S], dtype=torch.int32,
+                        device=cuda)
+    want = ref.gqa_decode(q, k, v, lens)
+    for i, n in enumerate(lens.tolist()):
+        k[i, n:] = float("nan")
+        v[i, n:] = float("nan")
+    y = ops.gqa_decode(q, k, v, lens)
+    torch.testing.assert_close(y, want, rtol=5e-4, atol=5e-4)
+    for i in (0, 2, 6):
+        one = ops.gqa_decode(q[i:i + 1].contiguous(),
+                             k[i:i + 1].contiguous(),
+                             v[i:i + 1].contiguous(), lens[i:i + 1])
+        assert torch.equal(one[0], y[i])
+
+
+def test_gqa_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, lens = _gqa_inputs(2, 4, 2, 64, 256, torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.gqa_decode(q[..., :40].contiguous(), k[..., :40].contiguous(),
+                       v[..., :40].contiguous(), lens)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.gqa_decode(q[:, :3].contiguous(), k, v, lens)
+    with pytest.raises(TypeError):
+        ops.gqa_decode(q.half(), k.half(), v.half(), lens)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.gqa_decode(q, k.transpose(1, 2).contiguous().transpose(1, 2),
+                       v, lens)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.gqa_decode(q, k, v, lens.cpu())
+    with pytest.raises(ValueError, match="int32"):
+        gk.gqa_decode_cuda(q, k, v, lens.long())
+
+
+def test_lm_decode_on_card_matches_cpu(cuda):
+    """The dense LM on the card (f32, TF32 off) against the same weights on
+    the CPU: prefill, then decode steps that launch ``gqa_decode`` once a
+    layer (rtol/atol 2e-4, the JAX prefill-vs-decode bound)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("llama3p2_3b", smoke=True)
+    cpu = build_model(cfg).init(torch.Generator().manual_seed(0))
+    dev = build_model(cfg, device=cuda).load_params(cpu.params())
+    toks = torch.randint(0, cfg.vocab, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    c_cpu, l_cpu = cpu.prefill(toks[:, :8], 32)
+    c_dev, l_dev = dev.prefill(toks[:, :8].to(cuda), 32)
+    torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=2e-4, atol=2e-4)
+    before = gk.launch_count()
+    for t in range(8, 12):
+        c_cpu, l_cpu = cpu.decode_step(c_cpu, toks[:, t])
+        c_dev, l_dev = dev.decode_step(c_dev, toks[:, t].to(cuda))
+        torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=2e-4, atol=2e-4)
+    assert gk.launch_count() == before + 4 * cfg.n_layers

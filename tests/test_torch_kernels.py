@@ -1,13 +1,16 @@
 """The port's kernel layer on the CPU against the JAX package's.
 
-``repro_torch.kernels.ops.rir_matmul`` on CPU tensors runs its plain PyTorch
-version; it is held against the JAX Pallas kernel (interpret mode on the
-CPU) and the JAX ``ref`` oracle over the ``test_kernels.py`` sweep, and the
-port's conv/depthwise versions against the JAX ones.  The same inputs, made
-with numpy from a seed, go to both.  Tolerances are the JAX sweep's: 2e-4
-for f32 (fp32 sums in another order) and 2e-2 for bf16 (8-bit mantissa,
-rounded at other places by the two frameworks).
+``repro_torch.kernels.ops.rir_matmul`` and ``ops.gqa_decode`` on CPU
+tensors run their plain PyTorch versions; each is held against the JAX
+Pallas kernel (interpret mode on the CPU) and the JAX ``ref`` oracle over
+the ``test_kernels.py`` sweep, and the port's conv/depthwise versions
+against the JAX ones.  The same inputs, made with numpy from a seed, go to
+both.  Tolerances are the JAX sweeps': 2e-4 (``rir_matmul``) and 5e-4
+(``gqa_decode``) for f32, sums in another order; 2e-2 and 3e-2 for bf16
+(8-bit mantissa, rounded at other places by the two frameworks).
 """
+import re
+
 import numpy as np
 import pytest
 
@@ -18,7 +21,8 @@ from numpy.testing import assert_allclose
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import gqa_decode as gk
 from repro_torch.kernels import rir_matmul as rk
 
 TORCH_DT = {"f32": torch.float32, "bf16": torch.bfloat16}
@@ -136,3 +140,61 @@ def test_conv_refs_match_jax(R, S, stride, H, W):
                               stride)
     assert_allclose(yd.numpy(), np.asarray(jref.depthwise_conv2d(
         jnp.asarray(x), jnp.asarray(dw), stride)), rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------------------------------------ gqa_decode
+@pytest.mark.parametrize("b,hq,hkv,d,s", [
+    (2, 8, 2, 64, 512), (1, 4, 4, 128, 1024), (3, 8, 1, 64, 2048),
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_gqa_decode_sweep_matches_jax(b, hq, hkv, d, s, dt):
+    rng = np.random.default_rng(b * hq + s)
+    q_t, q_j = _both(_np(rng, (b, hq, d)), dt)
+    k_t, k_j = _both(_np(rng, (b, s, hkv, d)), dt)
+    v_t, v_j = _both(_np(rng, (b, s, hkv, d)), dt)
+    lens = rng.integers(s // 2, s + 1, size=b).astype(np.int32)
+    y = ops.gqa_decode(q_t, k_t, v_t, torch.from_numpy(lens))
+    assert y.dtype == TORCH_DT[dt] and y.shape == (b, hq, d)
+    tol = 3e-2 if dt == "bf16" else 5e-4
+    y_kernel = jops.gqa_decode(q_j, k_j, v_j, jnp.asarray(lens))
+    y_ref = jref.gqa_decode(q_j, k_j, v_j, jnp.asarray(lens))
+    assert_allclose(_f32(y), _f32(y_kernel), rtol=tol, atol=tol)
+    assert_allclose(_f32(y), _f32(y_ref), rtol=tol, atol=tol)
+
+
+def test_gqa_decode_ignores_kv_past_length():
+    rng = np.random.default_rng(7)
+    q = torch.from_numpy(_np(rng, (2, 6, 32)))
+    k = torch.from_numpy(_np(rng, (2, 300, 3, 32)))
+    v = torch.from_numpy(_np(rng, (2, 300, 3, 32)))
+    lens = torch.tensor([1, 129], dtype=torch.int32)
+    y = ops.gqa_decode(q, k, v, lens)
+    k2, v2 = k.clone(), v.clone()
+    k2[0, 1:], v2[0, 1:] = 1e4, -1e4
+    k2[1, 129:], v2[1, 129:] = 1e4, -1e4
+    assert torch.equal(ops.gqa_decode(q, k2, v2, lens), y)
+    # length 1 attends to position 0 alone: the output is v[0] exactly
+    assert torch.allclose(y[0], v[0, 0].repeat_interleave(2, dim=0))
+
+
+def test_gqa_decode_cuda_wrapper_checks_before_any_build():
+    q, k = torch.zeros(1, 4, 64), torch.zeros(1, 16, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        gk.gqa_decode_cuda(q, k, k, torch.ones(1, dtype=torch.int32))
+    assert gk._lib is None
+    assert gk.library_path().parent == build.BUILD_DIR
+    assert gk.library_path().name.startswith("libgqa_decode-")
+    assert rk.library_path().name.startswith("librir_matmul-")
+
+
+def test_gqa_decode_constants_mirror_the_source():
+    """The wrapper sizes the kernel's scratch and shared memory from
+    SPLIT/TILE; they must be the source's kSplit/kTile."""
+    src = gk.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kSplit"]) == gk.SPLIT
+    assert int(consts["kTile"]) == gk.TILE
+    assert (int(consts["kMinD"]), int(consts["kMaxD"])) == (gk.D_MIN,
+                                                            gk.D_MAX)
+    assert gk.n_splits(1024) == 8 and gk.n_splits(1000) == 8
+    assert gk.smem_bytes(3, 128) < 48 * 1024 < gk.smem_bytes(8, 256)

@@ -5,6 +5,9 @@ The serving contract carries over unchanged: a request's output is
 bit-identical whether it was served alone or batched with strangers, and
 the outputs agree with ``repro.serve.ServeEngine(use_pallas=False)`` on the
 same requests (rtol 1e-4, atol 1e-3: fp32 GEMMs summed in other orders).
+LM serving (SMOKE llama3.2-3b, the JAX parameters carried across) gives the
+tokens of a JAX greedy loop that mirrors the JAX engine's LM backend,
+wherever JAX's top-1/top-2 logit gap is over 10x the logit tolerance.
 """
 import subprocess
 import sys
@@ -15,6 +18,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax
+import jax.numpy as jnp
+
+from repro.configs import get_config as jget_config
+from repro.models import build_model as jbuild_model
 from repro.serve import ServeConfig as JServeConfig
 from repro.serve import ServeEngine as JServeEngine
 from repro_torch import api, obs
@@ -93,15 +101,84 @@ def test_execute_requests_matches_full_batch():
 
 def test_config_device_and_lm_mode(monkeypatch):
     assert ServeConfig(graph="tiny").device == "cuda"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeConfig(arch="llama3p2_3b")
+    lm = ServeConfig(arch="llama3p2_3b")
+    assert lm.device == "cuda" and (lm.prompt_len, lm.gen) == (32, 16)
+    for arch, item in (("rwkv6_1p6b", "7"), ("zamba2_2p7b", "7"),
+                       ("whisper_small", "8"), ("dbrx_132b", "6b")):
+        with pytest.raises(NotImplementedError,
+                           match=rf"ROADMAP.md Queue 1 item {item} "):
+            ServeConfig(arch=arch)
     with pytest.raises(ValueError):
         ServeConfig(arch="llama3p2_3b", graph="tiny")
+    with pytest.raises(ValueError):
+        ServeConfig(arch="llama3p2_3b", gen=0)
     with pytest.raises(ValueError):
         ServeConfig(graph="tiny", max_batch=4, assemble_max=5)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServeEngine(ServeConfig(graph="tiny"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServeEngine(ServeConfig(arch="llama3p2_3b"))   # before any weight
+
+
+LM_TOL = 1e-5    # the LM parity tests' logit atol
+
+
+def _jax_greedy(jm, params, prompts, B, gen):
+    """The JAX engine's LM loop (``repro.serve.engine._LMBackend.run``):
+    prompts padded to ``B`` rows, prefill, argmax, ``gen - 1`` decode
+    steps.  Returns tokens (B, gen) and each step's top-1/top-2 gap."""
+    P = prompts.shape[1]
+    pad = np.zeros((B, P), np.int32)
+    pad[:len(prompts)] = prompts
+    decode = jax.jit(jm.decode_step)
+    cache, logits = jm.prefill(params, jnp.asarray(pad), P + gen)
+    toks, gaps = [], []
+    for step in range(gen):
+        if step:
+            cache, logits = decode(params, cache, toks[-1])
+        top2 = np.sort(np.asarray(logits), axis=-1)[:, -2:]
+        gaps.append(top2[:, 1] - top2[:, 0])
+        toks.append(jnp.argmax(logits, axis=-1))
+    return np.stack([np.asarray(t) for t in toks], 1), np.stack(gaps, 1)
+
+
+def test_lm_serve_matches_jax_greedy_and_sequential():
+    B, P, gen = 4, 8, 5
+    jm = jbuild_model(jget_config("llama3p2_3b", smoke=True))
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0)))
+    cfg = ServeConfig(arch="llama3p2_3b", smoke=True, max_batch=B,
+                      prompt_len=P, gen=gen, workers=2, device="cpu")
+    seq_cfg = ServeConfig(arch="llama3p2_3b", smoke=True, max_batch=B,
+                          prompt_len=P, gen=gen, assemble_max=1,
+                          device="cpu")
+    weights = api.to_torch_lm_params(params, api.get_config(
+        "llama3p2_3b", smoke=True), device="cpu")
+    rng = np.random.default_rng(12)
+    prompts = rng.integers(0, 512, size=(6, P)).astype(np.int32)
+    with ServeEngine(cfg, weights=weights) as eng, \
+            ServeEngine(seq_cfg, weights=weights) as seq:
+        assert eng.sample_shape == (P,)
+        got = eng.serve(list(prompts))
+        want = seq.serve(list(prompts))
+        with pytest.raises(ServeError):
+            eng.submit(prompts[0][:3])                 # not prompt_len long
+    assert obs.hist_stats("serve.prefill_ms")["count"] >= 2
+    assert obs.hist_stats("serve.decode_ms_per_token")["count"] >= 2
+    for a, b in zip(got, want):
+        assert a.dtype == np.int32 and a.shape == (gen,)
+        assert np.array_equal(a, b)
+    # the JAX loop over the same batch composition as the sequential run:
+    # request i alone in a batch padded with zero prompts
+    checked = 0
+    for i in (0, 5):
+        toks, gaps = _jax_greedy(jm, params, prompts[i:i + 1], B, gen)
+        for t in range(gen):
+            if gaps[0, t] <= 10 * LM_TOL:
+                break                    # a near tie: later inputs may differ
+            assert got[i][t] == toks[0, t], (i, t)
+            checked += 1
+    assert checked >= gen               # most steps are decided by a margin
 
 
 def test_backpressure_faults_and_stop(cache):
@@ -176,8 +253,9 @@ bad = sorted(m for m in sys.modules
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
 assert not bad, bad
-assert "repro_torch.kernels.rir_matmul" in names
-assert "repro_torch.kernels.rir_matmul" in sys.modules
+for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
+            "repro_torch.models.lm", "repro_torch.configs.llama3p2_3b"):
+    assert mod in names and mod in sys.modules, mod
 """
 
 
