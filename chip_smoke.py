@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (nothing is caught and skipped):
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), and
-   the ``rir_matmul`` and ``gqa_decode`` CUDA kernels built from
-   ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started together
-   (seconds and ``ptxas`` report printed).
+   the ``rir_matmul``, ``gqa_decode`` and ``linear_scan`` CUDA kernels built
+   from ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started
+   together (seconds and ``ptxas`` report printed).
 2. Planning: ResNet-50 and MobileNet-V3 at batch 8 with the serve engine's
    planner options, through one plan cache the engine then reuses.
 3. Kernel vs plain on the card: ``rir_matmul`` against
@@ -42,6 +42,37 @@ Phases, each of which raises on failure (nothing is caught and skipped):
 9. The dense LM in f32 at reduced depth (llama3.2-3b widths, 2 layers, TF32
    off): prefill and 7 decode steps on the card against the same weights
    on the CPU (plain path), rtol/atol 2e-4.
+10. ``linear_scan`` against its plain versions on the card: the JAX sweep's
+    shapes and dk != dv in f32 and bf16 against
+    ``repro_torch.kernels.ref.linear_scan_chunked``, ragged T against the
+    stepwise ``ref.linear_scan``, a -60 log decay; then the rwkv6-1.6b
+    training shape (B 8, H 32, T 1024, dk = dv = 64, bf16 q/k/v, f32 log
+    decay), checked and timed against the plain chunked version and the
+    card's bound; then the autograd Function's gradient against autograd
+    through the plain chunked version.
+11. Training (the training path): ``api.make_train_step`` on rwkv6-1.6b
+    at full width (24 layers, random bf16 weights from a seed, f32 AdamW
+    state) with the WSD schedule over ``SyntheticLMStream`` at batch 8 x
+    seq 1024 for 8 steps: finite losses, the first within 0.5 of ln 65536,
+    the last below the first, 48 ``linear_scan`` launches a step (24 in the
+    forward, 24 in the remat recompute); step ms, tokens/s, peak memory and
+    the share of bf16 peak; one more step under ``torch.profiler``.  Then
+    2 layers at rwkv6 widths in f32 (TF32 off): loss and gradients on the
+    card against the CPU within 2e-4 of max |g|.
+12. rwkv6 serving: ``api.ServeEngine`` at full width with weights drawn
+    at 0.05 (at the 0.02 init the scan's output lies below the ``ln_x``
+    norm's epsilon and no logits check sees it), ``max_batch=8``, prompt
+    128 (scanned in through ``decode_step``), gen 32, 16 requests; 2 of
+    them again one a batch, identical tokens.  In bf16, ``hidden_states``
+    of a served sequence: each layer's ``linear_scan`` output against the
+    plain chunked version on that layer's inputs, within 2e-2 x its max;
+    recorded beside it, the logits with the kernel, with the
+    plain version and from 4 teacher-forced decode steps after the scan-in
+    (in bf16 these three differ by ~3% of max |logit|: rounding carried
+    through 24 layers).  Then all 24 layers in f32: decode over 68 tokens
+    (the exact recurrence) against ``hidden_states`` within 2e-4 x max
+    |logit|.  Each asserts that zeroing the scan's output moves the logits
+    by at least 0.1 of their max.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -102,6 +133,42 @@ LM_TF_STEPS = 4             # teacher-forced decode steps checked
 LM_TF_REL = 2e-2            # max |dlogit| <= LM_TF_REL * max |logit| (bf16)
 LM_F32 = {"n_layers": 2, "batch": 2, "prompt": 64, "gen": 8}
 LM_F32_TOL = 2e-4           # the JAX test_models.py prefill/decode bound
+SCAN_REPLACES = "src/repro/kernels/linear_scan.py:82"
+SCAN_SOURCE = "src/repro_torch/kernels/csrc/linear_scan.cu"
+# linear_scan against the plain chunked version: the same algorithm in f32,
+# sums in another order (1e-4); bf16 q/k/v and output (2e-2); against the
+# stepwise recurrence, the JAX sweep's 3e-3
+SCAN_TOL = {"f32": 1e-4, "bf16": 2e-2}
+SCAN_STEP_TOL = 3e-3
+SCAN_TRAIN_SHAPE = (8, 32, 1024, 64, 64)    # B, H, T, dk, dv of rwkv6 training
+# the training path: rwkv6-1.6b at full width, random weights from TRAIN_SEED
+TRAIN_ARCH = "rwkv6_1p6b"
+TRAIN_SMOKE = False
+TRAIN_BATCH = 8
+TRAIN_SEQ = 1024
+TRAIN_STEPS = 8
+TRAIN_SEED = 0
+TRAIN_LR = 2e-3             # WSD: warmup 2, stable 4, decay 2 (the launcher's)
+# 2 layers in f32; weights at 0.05, not the 0.02 init: at 0.02 the scan's
+# output lies below the ln_x norm's epsilon and barely moves the loss
+TRAIN_F32 = {"n_layers": 2, "batch": 2, "seq": 128, "scale": 0.05}
+TRAIN_F32_TOL = 2e-4        # x max |g| per gradient; relative for the loss
+# rwkv6 serving: a short prompt, since SSM prefill is a host-bound scan-in;
+# weights at 0.05, not the 0.02 init, so that the scan moves the logits (the
+# ratio of SSM_F32's note) and the teacher-forced check sees the kernel
+SSM_SCALE = 0.05
+SSM_BATCH = 8
+SSM_PROMPT = 128
+SSM_GEN = 32
+SSM_REQUESTS = 16
+SSM_SEQ_REQUESTS = 2
+# rwkv6-1.6b at full width in f32 with weights at SSM_SCALE (the scan then
+# moves the logits by ~50%): stepwise decode against the kernel's chunked path
+SSM_F32 = {"batch": 2, "seq": 68, "scale": SSM_SCALE}
+SSM_F32_TOL = 2e-4          # x max |logit|
+# zeroing the scan must move the logits by this x max |logit|, so that the
+# checks of phase 12 run where the scan's output matters
+SSM_MIN_SCAN_EFFECT = 0.1
 
 
 def log(msg: str) -> None:
@@ -156,20 +223,26 @@ def check_network(name: str, got, want) -> dict:
 
 
 def device_time_by_kernel(prof):
-    """``[(device us, name, count)]`` from a ``torch.profiler`` run, largest
-    first, and their sum in ms (the device's busy time)."""
+    """``[(device us, name, count)]`` of the device's own events (kernels,
+    copies, memsets) from a ``torch.profiler`` run, largest first, and
+    their sum in ms (the device's busy time).  Host ops are left out: an
+    op that launched a kernel carries that kernel's time too, so counting
+    both would count it twice (the autograd backward's ops do)."""
+    from torch.autograd import DeviceType
+
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
     by_name = sorted(((dev_us(e), e.key, e.count)
-                      for e in prof.key_averages() if dev_us(e) > 0),
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
                      reverse=True)
     return by_name, sum(us for us, _, _ in by_name) / 1e3
 
 
 # ------------------------------------------------------------------- phases
-def phase_build(rk, gk) -> dict:
+def phase_build(rk, gk, lk) -> dict:
     import torch
     name = card_line()
     log(f"[device] {name}")
@@ -180,21 +253,22 @@ def phase_build(rk, gk) -> dict:
     log("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=2) as ex:   # one nvcc each, at once
-        for fut in [ex.submit(m.load) for m in (rk, gk)]:
+    with ThreadPoolExecutor(max_workers=3) as ex:   # one nvcc each, at once
+        for fut in [ex.submit(m.load) for m in (rk, gk, lk)]:
             fut.result()
     secs = time.perf_counter() - t0
-    for m in (rk, gk):
+    for m in (rk, gk, lk):
         log(f"[build] {m.library_path().name}: nvcc {m.build_seconds:.1f} s")
         for line in m.build_log.splitlines():
             if "entry function" in line:
                 log(f"[build] {line.strip()[:110]}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] both libraries built and loaded in {secs:.1f} s")
+    log(f"[build] all three libraries built and loaded in {secs:.1f} s")
     return {"card": name, "build_s": secs,
             "nvcc_s": {"rir_matmul": rk.build_seconds,
-                       "gqa_decode": gk.build_seconds}}
+                       "gqa_decode": gk.build_seconds,
+                       "linear_scan": lk.build_seconds}}
 
 
 def phase_plan(api):
@@ -682,7 +756,8 @@ def phase_lm_f32(torch, api, gk) -> dict:
     c = LM_F32
     cfg = dataclasses.replace(api.get_config(LM_ARCH, smoke=LM_SMOKE),
                               n_layers=c["n_layers"], dtype="float32")
-    cpu = api.build_model(cfg).init(torch.Generator().manual_seed(8))
+    cpu = api.build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(8))
     dev = api.build_model(cfg, device=DEV).load_params(cpu.params())
     toks = torch.from_numpy(np.random.default_rng(9).integers(
         0, cfg.vocab, size=(c["batch"], c["prompt"])))
@@ -710,6 +785,440 @@ def phase_lm_f32(torch, api, gk) -> dict:
     return rec
 
 
+def scan_inputs(torch, b, h, t, dk, dv, dtype, seed, decay=None):
+    """q, k, v ~ N(0, 1) in ``dtype`` and a log decay of -|N(0, 1)| * 0.2 in
+    f32 (the JAX sweep's), or the constant ``decay``, on the card."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    q = torch.randn(b, h, t, dk, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(b, h, t, dk, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(b, h, t, dv, generator=gen, device=DEV).to(dtype)
+    w = torch.full((b, h, t, dk), float(decay), device=DEV) if decay \
+        is not None else -(torch.randn(b, h, t, dk, generator=gen,
+                                       device=DEV).abs() * 0.2)
+    return q, k, v, w
+
+
+def scan_work(B, H, T, dk, dv) -> float:
+    """The f32 operations the chunked scan needs, 2 for each multiply-add
+    of its four products in every chunk of L steps: ``(q e^cum) h`` and the
+    state update ``(k e^(cum_L - cum))^T v`` (L dk dv each), the masked
+    scores over the pairs s <= t (L (L + 1) / 2 dk) and ``S v`` (the same
+    pairs, dv).  Exps, the decay factors and the kernel's sub-chunk
+    factorisation are left out; a ragged last chunk counts its real steps
+    only."""
+    L = 64
+    work = 0
+    for lo in range(0, T, L):
+        n = min(L, T - lo)
+        work += 2 * (2 * n * dk * dv + n * (n + 1) // 2 * (dk + dv))
+    return float(B * H * work)
+
+
+def phase_scan_sweep(torch, ops, ref, lk) -> dict:
+    """``linear_scan`` against the plain versions: the sweep in f32 and
+    bf16, ragged T, a -60 log decay, the training shape (timed), and the
+    Function's gradient."""
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    cases = [(2, 3, 128, 32, 64), (1, 2, 256, 64, 64), (2, 1, 192, 16, 16),
+             (2, 4, 128, 64, 16), (1, 2, 64, 16, 32)]
+    worst, n = {"f32": 0.0, "bf16": 0.0}, 0
+    for i, (b, h, t, dk, dv) in enumerate(cases):
+        for dt, tdt in dts.items():
+            q, k, v, w = scan_inputs(torch, b, h, t, dk, dv, tdt, 10 + i)
+            y = ops.linear_scan(q, k, v, w)
+            torch.cuda.synchronize()
+            name = f"scan sweep {b}x{h}x{t} dk={dk} dv={dv} {dt}"
+            if y.dtype != tdt or y.shape != v.shape:
+                raise AssertionError(f"{name}: {y.dtype} {y.shape}")
+            err = check_close(name, y, ref.linear_scan_chunked(q, k, v, w),
+                              SCAN_TOL[dt], SCAN_TOL[dt])
+            worst[dt] = max(worst[dt], err)
+            n += 1
+    for t in (1, 37, 100, 200):                       # ragged T
+        q, k, v, w = scan_inputs(torch, 2, 2, t, 32, 32, torch.float32, t)
+        err = check_close(f"scan ragged T={t}", ops.linear_scan(q, k, v, w),
+                          ref.linear_scan(q, k, v, w), SCAN_STEP_TOL,
+                          SCAN_STEP_TOL)
+        worst["f32_stepwise"] = max(worst.get("f32_stepwise", 0.0), err)
+        n += 1
+    q, k, v, w = scan_inputs(torch, 1, 2, 128, 16, 16, torch.float32, 3,
+                             decay=-60.0)
+    y = ops.linear_scan(q, k, v, w)
+    expect = torch.einsum("bhtd,bhtd->bht", q, k)[..., None] * v
+    if not torch.isfinite(y).all():
+        raise AssertionError("scan with -60 log decay: non-finite output")
+    check_close("scan -60 log decay", y, expect, 1e-4, 1e-4)
+    n += 1
+    log(f"[scan] sweep: {n} cases within tolerance (f32 {SCAN_TOL['f32']}, "
+        f"bf16 {SCAN_TOL['bf16']}, stepwise {SCAN_STEP_TOL}); worst |err| "
+        + json.dumps(worst))
+
+    # the rwkv6-1.6b training shape, bf16 q/k/v, f32 log decay
+    B, H, T, dk, dv = SCAN_TRAIN_SHAPE
+    q, k, v, w = scan_inputs(torch, B, H, T, dk, dv, torch.bfloat16, 20)
+    want = ref.linear_scan_chunked(q, k, v, w)
+    err = check_close("scan training shape", ops.linear_scan(q, k, v, w),
+                      want, SCAN_TOL["bf16"], SCAN_TOL["bf16"])
+    ms = cuda_ms(lambda: ops.linear_scan(q, k, v, w), iters=20)
+    plain_ms = cuda_ms(lambda: ref.linear_scan_chunked(q, k, v, w), iters=5,
+                       warmup=1)
+    nbytes = float(sum(x.numel() * x.element_size() for x in (q, k, v, w))
+                   + want.numel() * want.element_size())
+    flops = scan_work(B, H, T, dk, dv)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
+    rec = {"B": B, "H": H, "T": T, "dk": dk, "dv": dv, "dtype": "bf16",
+           "max_abs_err": err, "ref_max_abs": float(want.abs().max()),
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+           "bound_ms": max(byte_ms, flop_ms),
+           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
+           "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
+           "flop_ms": flop_ms, "byte_ms": byte_ms,
+           "achieved_tflop_s": flops / (ms * 1e-3) / 1e12}
+    log("[scan] training shape " + json.dumps(rec))
+    del q, k, v, w, want
+
+    # the autograd Function: kernel forward, plain chunked backward
+    ins = scan_inputs(torch, 2, 2, 128, 32, 64, torch.float32, 21)
+    g = torch.randn(2, 2, 128, 64, device=DEV,
+                    generator=torch.Generator(device=DEV).manual_seed(22))
+    a = [x.clone().requires_grad_(True) for x in ins]
+    b = [x.clone().requires_grad_(True) for x in ins]
+    before = lk.launch_count()
+    ga = torch.autograd.grad(ops.linear_scan(*a), a, g)
+    if lk.launch_count() != before + 1:
+        raise AssertionError("the Function's forward did not launch")
+    gb = torch.autograd.grad(ref.linear_scan_chunked(*b), b, g)
+    grad_rel = 0.0
+    for name, x, y in zip("qkvw", ga, gb):
+        scale = float(y.abs().max())
+        e = max_err(x, y)
+        if not (torch.isfinite(x).all() and e <= 1e-4 * scale):
+            raise AssertionError(f"scan grad d{name}: max |err| {e:.3e} "
+                                 f"beyond 1e-4 x {scale:.3e}")
+        grad_rel = max(grad_rel, e / scale)
+    log(f"[scan] gradient through the Function within 1e-4 of max |g| "
+        f"(worst ratio {grad_rel:.2e})")
+    torch.cuda.empty_cache()
+    return {"cases": n, "worst": worst, "train_shape": rec,
+            "grad_ratio": grad_rel}
+
+
+def phase_train(torch, api, lk, obs) -> dict:
+    """The training path: rwkv6-1.6b at full width, ``TRAIN_STEPS`` steps
+    of ``make_train_step`` with the WSD schedule, then one profiled."""
+    import gc
+    import math
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE)
+    t0 = time.perf_counter()
+    model = api.build_model(cfg, device=DEV)
+    model.init(torch.Generator(device=DEV).manual_seed(TRAIN_SEED))
+    opt = api.adamw_init(model.params())
+    steps = TRAIN_STEPS
+
+    def sched(s):
+        return api.wsd_schedule(s, peak_lr=TRAIN_LR,
+                                warmup=max(2, steps // 10),
+                                stable=steps // 2, decay=max(1, steps // 3))
+
+    step = api.make_train_step(model, schedule=sched)
+    stream = api.SyntheticLMStream(api.DataConfig(
+        vocab=cfg.vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.params().values())
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    losses, lrs, step_ms, per_step = [], [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    lk.reset_launch_count()                        # the training path starts
+    for s in range(steps):
+        before = lk.launch_count()
+        t1 = time.perf_counter()
+        opt, m = step(opt, stream.batch_at(s))
+        losses.append(float(m["loss"]))            # syncs on the loss
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+        per_step.append(lk.launch_count() - before)
+        lrs.append(m["lr"])
+    launches = lk.launch_count()                   # ... and ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log("[train] " + json.dumps({"losses": losses, "lr": lrs,
+                                 "step_ms": step_ms,
+                                 "launches_per_step": per_step}))
+    want = 2 * cfg.n_layers                        # forward + remat recompute
+    if any(c != want for c in per_step):
+        raise AssertionError(f"linear_scan launches a step {per_step}, "
+                             f"expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite loss: {losses}")
+    if abs(losses[0] - math.log(cfg.vocab)) > 0.5:
+        raise AssertionError(f"first loss {losses[0]:.3f} not within 0.5 of "
+                             f"ln {cfg.vocab} = {math.log(cfg.vocab):.3f}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"loss did not fall: {losses}")
+    steady = float(np.median(step_ms[1:])) if steps > 1 else step_ms[0]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        opt, m = step(opt, stream.batch_at(steps))
+        float(m["loss"])
+        torch.cuda.synchronize()
+        prof_wall_s = time.perf_counter() - t1
+    by_name, busy_ms = device_time_by_kernel(prof)
+    scan_ms = sum(us for us, name, _ in by_name
+                  if "linear_scan_kernel" in name) / 1e3
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
+           "init_s": init_s, "losses": losses, "lr": lrs,
+           "step_ms": step_ms, "step_ms_median_after_first": steady,
+           "tokens_per_s": tokens / (steady / 1e3),
+           "peak_mem_gb": peak_gb,
+           "bf16_peak_share_6NT": 6.0 * n_params * tokens
+           / (steady / 1e3) / BF16_PEAK_FLOPS,
+           "scan_launches": launches, "scan_launches_per_step": want,
+           "profiled_step_wall_ms": prof_wall_s * 1e3,
+           "device_busy_ms": busy_ms,
+           "device_busy_share": busy_ms / (prof_wall_s * 1e3),
+           "scan_kernel_ms_in_step": scan_ms,
+           "device_ops": sum(c for _, _, c in by_name),
+           "top_device_ms": [[name[:60], round(us / 1e3, 4), c]
+                             for us, name, c in by_name[:12]]}
+    log("[train] " + json.dumps({k: v for k, v in rec.items()
+                                 if k not in ("losses", "lr", "step_ms")}))
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_train_f32(torch, api, lk) -> dict:
+    """rwkv6 widths in f32 at reduced depth: loss and every gradient on the
+    card against the same weights on the CPU."""
+    import numpy as np
+    c = TRAIN_F32
+    cfg = dataclasses.replace(api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE),
+                              n_layers=c["n_layers"], dtype="float32")
+    cpu = api.build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(30), scale=c["scale"])
+    dev = api.build_model(cfg, device=DEV).load_params(cpu.params())
+    toks = torch.from_numpy(np.random.default_rng(31).integers(
+        0, cfg.vocab, size=(c["batch"], c["seq"] + 1)))
+    out = {}
+    for name, m, t in (("cpu", cpu, toks), ("cuda", dev, toks.to(DEV))):
+        m.requires_grad_(True)
+        params = list(m.params().values())
+        before = lk.launch_count()
+        loss = m.loss({"tokens": t})
+        grads = torch.autograd.grad(loss, params)
+        out[name] = (float(loss.detach()), grads, lk.launch_count() - before)
+    if out["cuda"][2] != 2 * cfg.n_layers or out["cpu"][2]:
+        raise AssertionError(f"f32 train: {out['cuda'][2]} launches on the "
+                             f"card, {out['cpu'][2]} on the CPU")
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if not loss_rel <= TRAIN_F32_TOL:
+        raise AssertionError(f"f32 train loss: card {out['cuda'][0]} CPU "
+                             f"{out['cpu'][0]}")
+    worst = 0.0
+    for (name, _), gd, gc_ in zip(cpu.params().items(), out["cuda"][1],
+                                  out["cpu"][1]):
+        scale = float(gc_.abs().max())
+        e = max_err(gd.cpu(), gc_)
+        if not e <= TRAIN_F32_TOL * scale:
+            raise AssertionError(f"f32 train grad {name}: max |err| {e:.3e} "
+                                 f"beyond {TRAIN_F32_TOL} x {scale:.3e}")
+        worst = max(worst, e / scale)
+    rec = {**c, "d_model": cfg.d_model, "loss_cpu": out["cpu"][0],
+           "loss_cuda": out["cuda"][0], "loss_rel_err": loss_rel,
+           "worst_grad_ratio": worst, "tol": TRAIN_F32_TOL,
+           "scan_launches": out["cuda"][2]}
+    log("[train-f32] " + json.dumps(rec))
+    del cpu, dev, out
+    torch.cuda.empty_cache()
+    return rec
+
+
+def logits_with_scan(model, toks, scan, pos=slice(None)):
+    """f32 logits at positions ``pos`` of ``toks`` with ``scan`` in place of
+    ``ops.linear_scan`` in every layer."""
+    from repro_torch.models import ssm
+    real_scan = ssm.ops.linear_scan
+    ssm.ops.linear_scan = scan
+    try:
+        return model.logits(model.hidden_states(toks)[:, pos]).float()
+    finally:
+        ssm.ops.linear_scan = real_scan
+
+
+def scan_effect(torch, model, toks, full, pos=slice(None)) -> float:
+    """max |logits with the scan's output zeroed - ``full``| / max |full|,
+    at positions ``pos`` of ``toks``: how far a check against ``full`` sees
+    the scan."""
+    no_scan = logits_with_scan(model, toks,
+                               lambda q, k, v, w: torch.zeros_like(v), pos)
+    return max_err(no_scan, full) / float(full.abs().max())
+
+
+def phase_ssm_serve(torch, api, lk, obs) -> dict:
+    """rwkv6 served at full width with weights at ``SSM_SCALE``: a scan-in
+    through ``decode_step``, then greedy decode; in bf16, every layer's
+    ``linear_scan`` output on a served sequence against its plain version
+    on the same inputs, the logits with either scan and a teacher-forced
+    decode recorded beside it; the scan must move the logits."""
+    import numpy as np
+    from repro_torch.kernels import ref
+    cfg = api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE)
+    rng = np.random.default_rng(40)
+    reqs = [rng.integers(0, cfg.vocab, SSM_PROMPT).astype(np.int32)
+            for _ in range(SSM_REQUESTS)]
+    kw = dict(arch=TRAIN_ARCH, smoke=TRAIN_SMOKE, max_batch=SSM_BATCH,
+              prompt_len=SSM_PROMPT, gen=SSM_GEN, seed=TRAIN_SEED,
+              device=DEV)
+    eng = api.ServeEngine(api.ServeConfig(workers=1, **kw))
+    model = eng.model.init(torch.Generator(device=DEV).manual_seed(TRAIN_SEED),
+                           scale=SSM_SCALE)
+    rec = {"arch": cfg.name, "requests": SSM_REQUESTS, "batch": SSM_BATCH,
+           "prompt_len": SSM_PROMPT, "gen": SSM_GEN, "scale": SSM_SCALE}
+    with eng:
+        eng.serve(reqs[:1])                        # warm the path
+        obs.reset()
+        obs.enable()
+        t0 = time.perf_counter()
+        outs = eng.serve(reqs)
+        secs = time.perf_counter() - t0
+        batches = int(obs.counter_value("serve.batches"))
+        rec.update({"batches": batches, "seconds": secs,
+                    "requests_per_s": SSM_REQUESTS / secs,
+                    "generated_tokens_per_s": SSM_REQUESTS * SSM_GEN / secs,
+                    "prefill_ms": obs.hist_stats("serve.prefill_ms"),
+                    "decode_ms_per_token":
+                        obs.hist_stats("serve.decode_ms_per_token")})
+        obs.reset()
+    for o in outs:
+        if o.shape != (SSM_GEN,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise AssertionError(f"rwkv6 serve: bad tokens {o.shape}")
+    log("[ssm] " + json.dumps(rec))
+    with api.ServeEngine(api.ServeConfig(workers=1, assemble_max=1, **kw),
+                         weights=model.params()) as seq:
+        seq_outs = seq.serve(reqs[:SSM_SEQ_REQUESTS])
+    for i, (a, b) in enumerate(zip(outs, seq_outs)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"rwkv6 request {i}: batched != sequential")
+    log(f"[ssm] {SSM_SEQ_REQUESTS} requests served one a batch: tokens "
+        f"identical to the batched run")
+    # a served sequence (the prompt and LM_TF_STEPS served tokens) through
+    # the chunked path, each layer's scan inputs and output kept; the
+    # decode fed the same tokens (teacher-forced)
+    from repro_torch.models import ssm
+    P, n = SSM_PROMPT, LM_TF_STEPS
+    toks = torch.from_numpy(np.stack(reqs[:SSM_BATCH]).astype(np.int64)
+                            ).to(DEV)
+    fed = torch.from_numpy(np.stack(outs[:SSM_BATCH])[:, :n]
+                           .astype(np.int64)).to(DEV)
+    seq_toks = torch.cat([toks, fed], dim=1)
+    calls, real_scan = [], ssm.ops.linear_scan
+
+    def kept(*ins):
+        out = real_scan(*ins)
+        calls.append((ins, out))
+        return out
+
+    with torch.inference_mode():
+        cache = model.init_cache(SSM_BATCH, P + n)
+        dec = []
+        for t in range(P + n):
+            cache, logits = model.decode_step(cache, seq_toks[:, t])
+            if t >= P:
+                dec.append(logits.float())
+        dec = torch.stack(dec, dim=1)                       # (B, n, V)
+        before = lk.launch_count()
+        full = logits_with_scan(model, seq_toks, kept)
+        launches = lk.launch_count() - before
+        worst = 0.0                  # max |err| / max |plain| over layers
+        for i, (ins, out) in enumerate(calls):
+            want = ref.linear_scan_chunked(*ins)
+            e, top = max_err(out, want), float(want.abs().max())
+            if out.shape != want.shape or not e <= SCAN_TOL["bf16"] * top:
+                raise AssertionError(
+                    f"rwkv6 layer {i} scan {tuple(out.shape)}: max |err| "
+                    f"{e:.3e} beyond {SCAN_TOL['bf16']} x {top:.3e}")
+            worst = max(worst, e / top)
+        dk, dv = calls[0][0][0].shape[-1], calls[0][1].shape[-1]
+        del calls
+        plain = logits_with_scan(model, seq_toks, ref.linear_scan_chunked)
+        effect = scan_effect(torch, model, seq_toks, full)
+    if launches != cfg.n_layers:
+        raise AssertionError(f"hidden_states: {launches} linear_scan "
+                             f"launches for {cfg.n_layers} layers")
+    scale = float(plain.abs().max())
+    tf_scale = float(full[:, P:].abs().max())
+    kp = {"positions": P + n, "layers": launches, "dtype": cfg.dtype,
+          "dk": dk, "dv": dv,
+          "scan_worst_ratio": worst, "scan_limit": SCAN_TOL["bf16"],
+          "scan_effect_ratio": effect,
+          "logits_kernel_vs_plain": max_err(full, plain) / scale,
+          "teacher_forced": {
+              "steps": n, "ref_max_abs": tf_scale,
+              "ratio_vs_kernel": max_err(dec, full[:, P:]) / tf_scale,
+              "ratio_vs_plain": max_err(dec, plain[:, P:]) / tf_scale}}
+    rec["bf16_scan_in_model"] = kp
+    log("[ssm] bf16, the kernel on every layer's inputs " + json.dumps(kp))
+    if not effect >= SSM_MIN_SCAN_EFFECT:
+        raise AssertionError(f"rwkv6 bf16: the scan moves the logits by "
+                             f"only {effect:.2e} of their max")
+    del eng, model
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_ssm_f32(torch, api, lk) -> dict:
+    """rwkv6-1.6b at full width in f32 (TF32 off): decode over every token
+    (the exact recurrence) against ``hidden_states`` (the ``linear_scan``
+    kernel, a ragged last chunk included) + ``logits``; and the logits with
+    the scan's output replaced by zeros, to show the comparison sees it."""
+    import numpy as np
+    c = SSM_F32
+    cfg = dataclasses.replace(api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE),
+                              dtype="float32")
+    model = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(50), scale=c["scale"])
+    toks = torch.from_numpy(np.random.default_rng(51).integers(
+        0, cfg.vocab, size=(c["batch"], c["seq"]))).to(DEV)
+    with torch.inference_mode():
+        cache = model.init_cache(c["batch"], c["seq"])
+        dec = []
+        for t in range(c["seq"]):
+            cache, logits = model.decode_step(cache, toks[:, t])
+            dec.append(logits)
+        dec = torch.stack(dec, dim=1)
+        before = lk.launch_count()
+        full = model.logits(model.hidden_states(toks))
+        launches = lk.launch_count() - before
+        effect = scan_effect(torch, model, toks, full)
+    scale = float(full.abs().max())
+    err = max_err(dec, full)
+    rec = {**c, "n_layers": cfg.n_layers, "max_abs_err": err,
+           "ref_max_abs": scale, "ratio": err / scale, "limit": SSM_F32_TOL,
+           "scan_effect_ratio": effect, "scan_launches": launches}
+    log("[ssm-f32] " + json.dumps(rec))
+    if launches != cfg.n_layers:
+        raise AssertionError(f"ssm f32: {launches} linear_scan launches for "
+                             f"{cfg.n_layers} layers")
+    if not err <= SSM_F32_TOL * scale:
+        raise AssertionError(f"ssm f32 decode vs chunked: max |err| "
+                             f"{err:.3e} beyond {SSM_F32_TOL} x {scale:.3e}")
+    if not effect >= SSM_MIN_SCAN_EFFECT:
+        raise AssertionError(f"ssm f32: the scan moves the logits by only "
+                             f"{effect:.2e} of their max; the check is blind")
+    del model, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -723,11 +1232,12 @@ def main(argv=None) -> int:
         return 1
     from repro_torch import api, obs
     from repro_torch.kernels import gqa_decode as gk
+    from repro_torch.kernels import linear_scan as lk
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rir_matmul as rk
 
     t_start = time.perf_counter()
-    record = {"build": phase_build(rk, gk)}
+    record = {"build": phase_build(rk, gk, lk)}
     cache, nets = phase_plan(api)
     record["sweep_worst_f32_err"] = phase_kernel_sweep(torch, ops, ref)
     record["resnet50_steps"] = phase_kernel_resnet(torch, api, ops, ref, nets)
@@ -738,9 +1248,15 @@ def main(argv=None) -> int:
     record["gqa_llama"] = phase_gqa_llama(torch, api, ops, ref)
     record["lm_serve"] = phase_lm_serve(torch, api, gk, obs)
     record["lm_f32"] = phase_lm_f32(torch, api, gk)
+    record["scan_sweep"] = phase_scan_sweep(torch, ops, ref, lk)
+    record["train"] = phase_train(torch, api, lk, obs)
+    record["train_f32"] = phase_train_f32(torch, api, lk)
+    record["ssm_serve"] = phase_ssm_serve(torch, api, lk, obs)
+    record["ssm_f32"] = phase_ssm_f32(torch, api, lk)
     record["seconds"] = time.perf_counter() - t_start
     tot = record["resnet50_steps"]["total"]
     gq = record["gqa_llama"]
+    sc = record["scan_sweep"]["train_shape"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
@@ -753,7 +1269,13 @@ def main(argv=None) -> int:
         "launches": record["lm_serve"]["gqa_launches"],
         "max_abs_err": gq["max_abs_err"], "ms": gq["ms"],
         "plain_ms": gq["plain_ms"], "bound_ms": gq["bound_ms"],
-        "bound_by": gq["bound_by"], "library_ms": gq["library_ms"]}]}
+        "bound_by": gq["bound_by"], "library_ms": gq["library_ms"]}, {
+        "name": "linear_scan", "route": "cuda", "source": SCAN_SOURCE,
+        "replaces": SCAN_REPLACES,
+        "launches": record["train"]["scan_launches"],
+        "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
+        "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
+        "bound_by": sc["bound_by"], "library_ms": None}]}
     record["kernels"] = kernels["kernels"]
     if args.out:
         path = pathlib.Path(args.out)

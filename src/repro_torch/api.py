@@ -3,8 +3,11 @@
 The counterpart of ``repro.api`` for what the port runs so far: planning,
 execution of planned networks through the hand-written ``rir_matmul``
 kernel, the dense LMs (their decode attention through the hand-written
-``gqa_decode`` kernel), and serving of both.  Entry points take ``device="cuda"`` by default and
-raise where CUDA is absent; ``device="cpu"`` runs the plain PyTorch path.
+``gqa_decode`` kernel) and rwkv6 (its training scan through the
+hand-written ``linear_scan`` kernel), serving of both, and training on one
+device (AdamW, the WSD schedule, the synthetic data stream).  Entry points
+take ``device="cuda"`` by default and raise where CUDA is absent;
+``device="cpu"`` runs the plain PyTorch path.
 The function wrappers take keyword-only arguments beyond their primary
 operands, as ``repro.api``'s do.
 
@@ -19,6 +22,15 @@ Typical use::
                           gen=64)
     with api.ServeEngine(cfg) as eng:
         tokens = eng.serve(prompts)          # each (gen,) int32
+
+    model = api.build_model(api.get_config("rwkv6_1p6b"))
+    model.init(torch.Generator("cuda").manual_seed(0))
+    opt = api.adamw_init(model.params())
+    step = api.make_train_step(model, schedule=lambda s: api.wsd_schedule(
+        s, peak_lr=3e-3, warmup=2, stable=4, decay=2))
+    stream = api.SyntheticLMStream(api.DataConfig(
+        vocab=65536, global_batch=8, seq_len=1024))
+    opt, metrics = step(opt, stream.batch_at(0))
 """
 from __future__ import annotations
 
@@ -30,7 +42,10 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.layout import Layout
 from repro_torch.core.layoutloop import EvalConfig
 from repro_torch.core.workloads import init_graph_weights
+from repro_torch.data import DataConfig, SyntheticLMStream, make_stream
+from repro_torch.distributed import make_train_step
 from repro_torch.models import build_model
+from repro_torch.optim import adamw_init, adamw_update, wsd_schedule
 from repro_torch.plan import (ExecutionPlan, LayerGraph, PlanCache,
                               PlannerOptions, PreparedNetwork, ResolvedPlan,
                               execute_network_reference, fold_batchnorm,
@@ -104,4 +119,7 @@ __all__ = [
     "ARCH_IDS", "get_config", "build_model", "to_torch_lm_params",
     # serving
     "ServeEngine", "ServeConfig", "ServeTicket", "QueueFullError",
+    # training
+    "DataConfig", "SyntheticLMStream", "make_stream", "adamw_init",
+    "adamw_update", "wsd_schedule", "make_train_step",
 ]

@@ -3,6 +3,12 @@
 A CPU tensor runs the plain PyTorch version (``ref``); a CUDA tensor
 launches the hand-written Hopper kernel, or raises.  There is no toggle and
 no fallback: nothing routes a CUDA tensor around its kernel.
+
+``linear_scan`` is differentiable.  Its backward is not a kernel, because
+the JAX package has none: ``repro``'s ``custom_vjp`` recomputes through
+``ref.linear_scan_chunked`` in XLA, and the port recomputes through its own
+``ref.linear_scan_chunked`` under autograd, on whichever device the
+operands lie.
 """
 from __future__ import annotations
 
@@ -13,6 +19,7 @@ import torch
 
 from . import ref
 from .gqa_decode import gqa_decode_cuda
+from .linear_scan import linear_scan_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
 
 Perm = Union[Sequence[int], torch.Tensor, None]
@@ -90,4 +97,40 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return gqa_decode_cuda(q, k, v, lengths.to(torch.int32))
 
 
-__all__ = ["rir_matmul", "device_perm", "gqa_decode", "TILE_N"]
+class _LinearScan(torch.autograd.Function):
+    """The kernel (or, on the CPU, the plain chunked version) forward; a
+    backward through the plain chunked version, recomputed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, log_decay):
+        ctx.save_for_backward(q, k, v, log_decay)
+        if q.device.type == "cpu":
+            return ref.linear_scan_chunked(q, k, v, log_decay)
+        if q.device.type != "cuda":
+            raise ValueError(f"linear_scan runs on cpu or cuda, not "
+                             f"{q.device}")
+        return linear_scan_cuda(q, k, v, log_decay)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ref.linear_scan_chunked(*ins)
+            return torch.autograd.grad(out, ins, g)
+
+
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_decay: torch.Tensor) -> torch.Tensor:
+    """Chunked gated linear attention: ``(B, H, T, dv)`` in v's dtype.
+
+    q/k (B, H, T, dk), v (B, H, T, dv), log_decay (B, H, T, dk) <= 0 (f32
+    on the card), all on one device.  Any T runs the kernel: it masks a
+    ragged last chunk itself, so the JAX kernel's ``T % 64`` assert, its
+    ``chunk=`` argument (ignored on its kernel path) and the
+    ``use_kernels``/``REPRO_SCAN_CHUNK`` switches have no counterpart.
+    """
+    return _LinearScan.apply(q, k, v, log_decay)
+
+
+__all__ = ["rir_matmul", "device_perm", "gqa_decode", "linear_scan",
+           "TILE_N"]

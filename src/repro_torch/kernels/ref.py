@@ -4,13 +4,15 @@ Each function is the semantic ground truth its kernel is held against: the
 CPU tests compare them with the JAX package's oracles, and ``chip_smoke.py``
 compares the CUDA kernel with them on the card.  Layouts at the public
 functions are the JAX package's: NHWC activations, ``(R, S, C, M)`` conv
-weights, ``(R, S, M)`` depthwise weights, ``(B, S, Hkv, D)`` KV caches.
+weights, ``(R, S, M)`` depthwise weights, ``(B, S, Hkv, D)`` KV caches,
+``(B, H, T, d)`` scan operands.
 """
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 
 # ----------------------------------------------------------------- rir_matmul
@@ -104,3 +106,109 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------- linear_scan
+#: steps a chunk and rows a sub-chunk, shared with the CUDA kernel
+#: (``kChunk`` / ``kSub`` in ``csrc/linear_scan.cu``)
+CHUNK = 64
+SUB = 16
+
+
+def _intra_chunk_scores(qq: torch.Tensor, kk: torch.Tensor,
+                        cum: torch.Tensor) -> torch.Tensor:
+    """Exact, overflow-free masked intra-chunk attention scores.
+
+    qq, kk, cum: (..., L, dk), any leading dims (the port runs every chunk
+    of every (b, h) at once).  Returns (..., L, L):
+
+        S[t, s] = sum_d q[t,d] k[s,d] exp(cum[t,d] - cum[s,d]) for s <= t,
+        else 0.
+
+    Stability: for each row sub-chunk j, factor through the base b_j =
+    decay-prefix at the sub-chunk start, which lies BETWEEN s and t, so both
+    exponents (cum_t - b_j) and (b_j - cum_s) are <= 0 — no clamping needed.
+    The diagonal sub-blocks use the direct (sub, sub, dk) form (also <= 0).
+    """
+    L = qq.shape[-2]
+    sub = min(SUB, L)
+    while L % sub:
+        sub -= 1
+    t_idx = torch.arange(L, device=qq.device)
+    tri = torch.tril(torch.ones(sub, sub, dtype=torch.bool,
+                                device=qq.device))
+    rows = []
+    for lo in range(0, L, sub):
+        b = cum[..., lo:lo + 1, :]                          # (..., 1, dk)
+        cd = cum[..., lo:lo + sub, :]
+        q_j = qq[..., lo:lo + sub, :] * torch.exp(cd - b)
+        # columns strictly before this sub-chunk
+        k_pre = kk * torch.exp(torch.clamp(b - cum, max=0.0))
+        pre = q_j @ k_pre.transpose(-1, -2)                 # (..., sub, L)
+        pre = torch.where(t_idx < lo, pre, 0.0)
+        # exact diagonal block
+        diff = cd[..., :, None, :] - cd[..., None, :, :]    # (.., sub, sub, dk)
+        blk = torch.sum(qq[..., lo:lo + sub, None, :]
+                        * kk[..., None, lo:lo + sub, :]
+                        * torch.exp(torch.clamp(diff, max=0.0)), dim=-1)
+        blk = torch.where(tri, blk, 0.0)
+        rows.append(pre + F.pad(blk, (lo, L - lo - sub)))
+    return torch.cat(rows, dim=-2)                          # (..., L, L)
+
+
+def linear_scan_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        log_decay: torch.Tensor) -> torch.Tensor:
+    """Plain chunked GLA scan: the kernel's algorithm (three GEMMs a chunk,
+    an f32 (dk, dv) state carried across chunks), in v's dtype.
+
+    The intra-chunk scores and the decay factors of every chunk are computed
+    at once; only the carried state walks the chunks in order.  The chunk
+    (``CHUNK`` steps) shrinks until it divides T, as in the JAX version.
+    Differentiable: it is what ``ops.linear_scan``'s backward runs autograd
+    through.
+    """
+    B, H, T, dk = q.shape
+    dv = v.shape[-1]
+    chunk = min(CHUNK, T)
+    while T % chunk:
+        chunk -= 1
+    n = T // chunk
+    qc = q.float().reshape(B, H, n, chunk, dk)
+    kc = k.float().reshape(B, H, n, chunk, dk)
+    vc = v.float().reshape(B, H, n, chunk, dv)
+    cum = torch.cumsum(log_decay.float().reshape(B, H, n, chunk, dk), dim=-2)
+    tot = cum[..., -1:, :]                                  # (B, H, n, 1, dk)
+    q_in = qc * torch.exp(cum)                              # <= 0 exponents
+    k_in = kc * torch.exp(tot - cum)                        # <= 0
+    ys = _intra_chunk_scores(qc, kc, cum) @ vc              # (B, H, n, L, dv)
+    h = q.new_zeros((B, H, dk, dv), dtype=torch.float32)
+    out = []
+    for c in range(n):
+        out.append(ys[:, :, c] + q_in[:, :, c] @ h)
+        h = tot[:, :, c].transpose(-1, -2).exp() * h \
+            + k_in[:, :, c].transpose(-1, -2) @ vc[:, :, c]
+    return torch.stack(out, dim=2).reshape(B, H, T, dv).to(v.dtype)
+
+
+def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                log_decay: torch.Tensor) -> torch.Tensor:
+    """Gated linear attention / SSM scan (rwkv6 and mamba2 core), one step
+    at a time: the exact recurrence, the ground truth of both the chunked
+    version and the kernel.
+
+    Over t, with state h: (dk, dv) per (b, h):
+        h_t = exp(log_decay_t)[:, None] * h_{t-1} + k_t^T v_t
+        y_t = q_t @ h_t
+
+    q/k: (B, H, T, dk); v: (B, H, T, dv); log_decay: (B, H, T, dk) (<= 0).
+    Returns (B, H, T, dv) in v's dtype, computed in f32.
+    """
+    B, H, T, dk = q.shape
+    qf, kf, vf = q.float(), k.float(), v.float()
+    w = torch.exp(log_decay.float())
+    h = q.new_zeros((B, H, dk, v.shape[-1]), dtype=torch.float32)
+    out = []
+    for t in range(T):
+        h = h * w[:, :, t, :, None] + kf[:, :, t, :, None] * vf[:, :, t, None]
+        out.append((qf[:, :, t, None, :] @ h)[:, :, 0])
+    return torch.stack(out, dim=2).to(v.dtype)

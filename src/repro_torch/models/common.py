@@ -26,7 +26,9 @@ class ParamModule(nn.Module):
     """A module built from a spec tree: each leaf a parameter, each nested
     dict a sub-module, under the JAX leaf names, and read as ``p["name"]``
     as well as ``p.name`` so that block code reads like the JAX code.
-    Parameters are inference weights (``requires_grad=False``)."""
+    Parameters are built as inference weights (``requires_grad=False``),
+    so serving records no autograd graph; a trainer turns gradients on
+    (``module.requires_grad_(True)``)."""
 
     def __init__(self, specs: SpecTree, device: str | torch.device):
         super().__init__()

@@ -1,15 +1,18 @@
-"""Decoder-only LM assembler for the dense family.
+"""Decoder-only LM assembler for the dense and SSM (rwkv6) families.
 
 The port of ``repro.models.lm`` for ``family="dense"`` (and ``"vlm"``,
-which ``prefill`` lists): the same parameter tree under the same leaf names
-(``embed``, ``final_norm``, ``layers.<i>.mixer``/``ffn``, ``lm_head`` when
-the head is untied), the same forward, prefill and decode.  Where the JAX
-package stacks a leading layer axis and scans, the port keeps one
-``ParamModule`` per layer in a ``ModuleList`` and loops.  The KV cache is
-preallocated: ``{"layers": {"k", "v"}: (L, B, S, Hkv, dh), "length": (B,)
-int32}`` on the model's device, which ``decode_step`` updates in place, so
-a decode step makes no host sync.  Forward only: training (``loss``,
-``chunked_ce_loss``) comes with ROADMAP Queue 1 item 9.
+which ``prefill`` lists) and ``family="ssm"`` with the RWKV6 mixer: the
+same parameter tree under the same leaf names (``embed``, ``final_norm``,
+``layers.<i>.mixer``/``ffn``, ``lm_head`` when the head is untied), the same
+forward, loss, prefill and decode.  Where the JAX package stacks a leading
+layer axis and scans, the port keeps one ``ParamModule`` per layer in a
+``ModuleList`` and loops; ``jax.checkpoint`` of a layer (``remat``) becomes
+``torch.utils.checkpoint``.  Caches are preallocated on the model's device
+and ``decode_step`` updates them in place, so a decode step makes no host
+sync: ``{"layers": {"k", "v"}: (L, B, S, Hkv, dh), "length": (B,) int32}``
+for attention, ``{"layers": {"x_prev": (L, B, D), "state": (L, B, H, hd,
+hd) f32}, "length"}`` for rwkv6.  Parameters are built without gradients
+(serving); a trainer turns them on (``requires_grad_(True)``).
 """
 from __future__ import annotations
 
@@ -17,30 +20,41 @@ from typing import Dict, Iterator, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.device import resolve_device
 
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
                      dtype_of, mlp_apply, mlp_specs)
 from .common import ParamModule, Spec, SpecTree, apply_norm, dense, norm_spec
+from .ssm import rwkv6_cache_specs, rwkv6_decode, rwkv6_specs, rwkv6_train
 
 #: families the port runs, and the ROADMAP item each other one waits for
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "ssm")
 NOT_PORTED = {
     "moe": "ROADMAP.md Queue 1 item 6b (MoE: moe_specs/moe_apply)",
-    "ssm": "ROADMAP.md Queue 1 item 7 (SSM and hybrid, with linear_scan)",
-    "hybrid": "ROADMAP.md Queue 1 item 7 (SSM and hybrid, with linear_scan)",
+    "hybrid": "ROADMAP.md Queue 1 item 7 (SSM and hybrid: mamba2 and the "
+              "shared attention block)",
     "encdec": "ROADMAP.md Queue 1 item 8 (encoder-decoder)",
 }
+MAMBA2 = "ROADMAP.md Queue 1 item 7 (SSM and hybrid: the mamba2 mixer)"
+
+
+def _is_rwkv(cfg: ArchConfig) -> bool:
+    return cfg.family == "ssm" and cfg.name.startswith("rwkv")
 
 
 def check_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a family
-    the port does not run yet."""
+    (or, in the ssm family, a mixer) the port does not run yet."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet: "
             f"{NOT_PORTED.get(cfg.family, 'ROADMAP.md Queue 1')}")
+    if cfg.family == "ssm" and not _is_rwkv(cfg):
+        raise NotImplementedError(f"{cfg.name}: the ssm family runs rwkv6 "
+                                  f"only so far: {MAMBA2}")
 
 
 def flat_specs(tree: SpecTree, prefix: str = "") -> Iterator[Tuple[str, Spec]]:
@@ -64,7 +78,13 @@ def top_specs(cfg: ArchConfig) -> SpecTree:
 
 
 def layer_specs(cfg: ArchConfig) -> SpecTree:
-    """One layer's parameters."""
+    """One layer's parameters: the mixer, and the MLP (an SSM config
+    without ``d_ff`` has none)."""
+    if _is_rwkv(cfg):
+        out = {"mixer": rwkv6_specs(cfg)}
+        if cfg.d_ff:
+            out["ffn"] = mlp_specs(cfg)
+        return out
     return {"mixer": attn_specs(cfg), "ffn": mlp_specs(cfg)}
 
 
@@ -80,14 +100,15 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Spec]:
 
 
 class LMModel(nn.Module):
-    """Uniform decoder-only stack with dense attention and MLP blocks."""
+    """Uniform decoder-only stack: dense attention or RWKV6 mixers, MLPs."""
 
-    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cpu"):
+    def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         super().__init__()
         check_family(cfg)
+        dev = resolve_device(device)
         self.cfg = cfg
-        self.top = ParamModule(top_specs(cfg), device)
-        self.layers = nn.ModuleList(ParamModule(layer_specs(cfg), device)
+        self.top = ParamModule(top_specs(cfg), dev)
+        self.layers = nn.ModuleList(ParamModule(layer_specs(cfg), dev)
                                     for _ in range(cfg.n_layers))
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -135,12 +156,33 @@ class LMModel(nn.Module):
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.top.embed[tokens.long()]
 
-    def hidden_states(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, T) -> final hidden (B, T, D)."""
-        x = self._embed(tokens)
-        for layer in self.layers:
-            x = x + attn_train(self.cfg, layer["mixer"], x)
+    def _mixer_train(self, p, x: torch.Tensor) -> torch.Tensor:
+        if _is_rwkv(self.cfg):
+            return rwkv6_train(self.cfg, p, x)
+        return attn_train(self.cfg, p, x)
+
+    def _layer_train(self, x: torch.Tensor, layer: ParamModule
+                     ) -> torch.Tensor:
+        x = x + self._mixer_train(layer["mixer"], x)
+        if hasattr(layer, "ffn"):
             x = x + mlp_apply(self.cfg, layer["ffn"], x)
+        return x
+
+    def hidden_states(self, tokens: torch.Tensor, remat: bool = True
+                      ) -> torch.Tensor:
+        """tokens: (B, T) -> final hidden (B, T, D).
+
+        ``remat``: where autograd records, each layer runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward), as ``jax.checkpoint`` wraps the JAX layer scan."""
+        x = self._embed(tokens)
+        remat = remat and torch.is_grad_enabled()
+        for layer in self.layers:
+            if remat:
+                x = checkpoint(self._layer_train, x, layer,
+                               use_reentrant=False)
+            else:
+                x = self._layer_train(x, layer)
         return apply_norm(self.cfg.norm, x, self.top.final_norm)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
@@ -148,34 +190,64 @@ class LMModel(nn.Module):
             else self.top.lm_head
         return dense(hidden, head)
 
+    def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """batch: {"tokens": (B, T+1)} -> mean next-token cross-entropy
+        (f32 scalar), through a sequence-chunked softmax."""
+        tokens = batch["tokens"]
+        inp, tgt = tokens[:, :-1], tokens[:, 1:]
+        return chunked_ce_loss(self, self.hidden_states(inp), tgt)
+
     # ---------------------------------------------------------------- serving
     def cache_specs(self, batch: int, max_seq: int) -> Dict[str, Spec]:
-        """K/V ``(L, batch, max_seq, Hkv, dh)`` and ``length`` (batch,)."""
+        """The mixer caches with a leading layer axis (attention: K/V
+        ``(L, batch, max_seq, Hkv, dh)``; rwkv6: ``x_prev (L, batch, D)``,
+        ``state (L, batch, H, hd, hd)`` f32) and ``length`` (batch,)."""
         cfg = self.cfg
-        kv = ((cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
-              dtype_of(cfg))
-        return {"k": kv, "v": kv, "length": ((batch,), torch.int32)}
+        if _is_rwkv(cfg):
+            per_layer = rwkv6_cache_specs(cfg, batch)
+        else:
+            kv = ((batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
+                  dtype_of(cfg))
+            per_layer = {"k": kv, "v": kv}
+        out = {n: ((cfg.n_layers,) + shape, dt)
+               for n, (shape, dt) in per_layer.items()}
+        out["length"] = ((batch,), torch.int32)
+        return out
 
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         z = {n: torch.zeros(shape, dtype=dt, device=self.device)
              for n, (shape, dt) in self.cache_specs(batch, max_seq).items()}
-        return {"layers": {"k": z["k"], "v": z["v"]}, "length": z["length"]}
+        length = z.pop("length")
+        return {"layers": z, "length": length}
+
+    def _mixer_decode(self, i: int, p, x: torch.Tensor, caches: Dict,
+                      length: torch.Tensor) -> torch.Tensor:
+        """Layer ``i``'s mixer for one token; writes its cache in place."""
+        if _is_rwkv(self.cfg):
+            delta, new = rwkv6_decode(self.cfg, p, x,
+                                      {n: c[i] for n, c in caches.items()})
+            for n, c in caches.items():
+                c[i].copy_(new[n])
+            return delta
+        delta, _, _ = attn_decode(self.cfg, p, x, caches["k"][i],
+                                  caches["v"][i], length)
+        return delta
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[Dict, torch.Tensor]:
         """tokens: (B,) -> (cache, logits (B, V)).  Updates ``cache`` in
-        place (each layer's K/V at ``length``, then ``length + 1``) and
-        returns it, where the JAX version returns a new cache."""
+        place (each layer's K/V at ``length``, or its rwkv6 ``x_prev`` and
+        state; then ``length + 1``) and returns it, where the JAX version
+        returns a new cache."""
         cfg = self.cfg
         x = self._embed(tokens)
         length = cache["length"]
-        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
         for i, layer in enumerate(self.layers):
-            delta, _, _ = attn_decode(cfg, layer["mixer"], x, ks[i], vs[i],
-                                      length)
-            x = x + delta
-            # the ffn runs on a (B, 1, D) pseudo-sequence, as in JAX
-            x = x + mlp_apply(cfg, layer["ffn"], x[:, None, :])[:, 0]
+            x = x + self._mixer_decode(i, layer["mixer"], x, cache["layers"],
+                                       length)
+            if hasattr(layer, "ffn"):
+                # the ffn runs on a (B, 1, D) pseudo-sequence, as in JAX
+                x = x + mlp_apply(cfg, layer["ffn"], x[:, None, :])[:, 0]
         x = apply_norm(cfg.norm, x, self.top.final_norm)
         logits = self.logits(x)
         length.add_(1)
@@ -185,20 +257,57 @@ class LMModel(nn.Module):
                 ) -> Tuple[Dict, torch.Tensor]:
         """tokens: (B, T) -> (cache, last-position logits (B, V)).
 
-        The attention caches hold the prompt's K/V in positions [0, T) and
-        zeros after, and ``length`` is T."""
+        Attention caches hold the prompt's K/V in positions [0, T) and
+        zeros after.  An SSM prefill runs the chunked train path for the
+        logits and leaves the recurrent states at zero, exactly as the JAX
+        version does (its serve engine scans the prompt in through
+        ``decode_step`` instead).  ``length`` is T."""
         cfg = self.cfg
         B, T = tokens.shape
         x = self._embed(tokens)
         cache = self.init_cache(B, max_seq)
-        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
-        for i, layer in enumerate(self.layers):
-            delta, (k, v) = attn_prefill(cfg, layer["mixer"], x)
-            x = x + delta
-            x = x + mlp_apply(cfg, layer["ffn"], x)
-            ks[i, :, :T] = k
-            vs[i, :, :T] = v
+        if _is_rwkv(cfg):
+            for layer in self.layers:
+                x = self._layer_train(x, layer)
+        else:
+            ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+            for i, layer in enumerate(self.layers):
+                delta, (k, v) = attn_prefill(cfg, layer["mixer"], x)
+                x = x + delta
+                x = x + mlp_apply(cfg, layer["ffn"], x)
+                ks[i, :, :T] = k
+                vs[i, :, :T] = v
         x = apply_norm(cfg.norm, x, self.top.final_norm)
         logits = self.logits(x[:, -1])
         cache["length"].fill_(T)
         return cache, logits
+
+
+def _ce_chunk(model: LMModel, h: torch.Tensor, t: torch.Tensor
+              ) -> torch.Tensor:
+    logits = model.logits(h).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
+    return torch.sum(lse - picked)
+
+
+def chunked_ce_loss(model: LMModel, hidden: torch.Tensor,
+                    targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy without materialising the full (B, T, V) logits: the
+    sequence in chunks of ``chunk`` positions, each under
+    ``torch.utils.checkpoint`` where autograd records (the backward
+    recomputes a chunk's logits — flash-CE), summed in order."""
+    B, T, D = hidden.shape
+    chunk = min(chunk, T)
+    if T % chunk:
+        raise ValueError(f"sequence length {T} is not a multiple of the "
+                         f"loss chunk {chunk}")
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for lo in range(0, T, chunk):
+        h, t = hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk]
+        if torch.is_grad_enabled():
+            total = total + checkpoint(_ce_chunk, model, h, t,
+                                       use_reentrant=False)
+        else:
+            total = total + _ce_chunk(model, h, t)
+    return total / (B * T)

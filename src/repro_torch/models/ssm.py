@@ -1,0 +1,129 @@
+"""SSM mixers: RWKV6 (Finch), train and decode paths.
+
+The port of the RWKV6 half of ``repro.models.ssm``: the same parameter
+spec (``w0`` and ``u`` in f32, the rest in the model dtype), the same
+token-shift projections, the chunked train path through ``ops.linear_scan``
+(the CUDA kernel on the card) and the exact one-step recurrence for decode.
+The Mamba2 half (``mamba2_*``) comes with the hybrid slice (ROADMAP Queue 1
+item 7), since zamba2 is the config that needs it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels import ops
+
+from .blocks import dtype_of
+from .common import SpecTree, apply_norm, dense, norm_spec
+
+_LORA_RANK = 64
+
+
+def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
+    di = cfg.d_inner or 2 * cfg.d_model
+    state = cfg.ssm_state or 64
+    heads = cfg.ssm_heads or max(1, di // 64)
+    headdim = di // heads
+    return di, state, heads, headdim
+
+
+def rwkv6_specs(cfg: ArchConfig) -> SpecTree:
+    D = cfg.d_model
+    di, _, heads, headdim = _dims(cfg)
+    dt = dtype_of(cfg)
+    f32 = torch.float32
+    return {
+        "norm": norm_spec(cfg.norm, D, dt),
+        "mu": ((5, D), dt),                   # r,k,v,w,g token-shift
+        "wr": ((D, di), dt),
+        "wk": ((D, di), dt),
+        "wv": ((D, di), dt),
+        "wg": ((D, di), dt),
+        "w0": ((di,), f32),
+        "w1": ((D, _LORA_RANK), dt),
+        "w2": ((_LORA_RANK, di), dt),
+        "u": ((di,), f32),                    # current-token bonus
+        "ln_x": norm_spec("rmsnorm", di, dt),  # per-head group norm
+        "wo": ((di, D), dt),
+    }
+
+
+def _rwkv6_project(cfg: ArchConfig, p, x: torch.Tensor,
+                   x_prev: torch.Tensor):
+    """Token-shift mix then project.  x, x_prev: (B, T, D)."""
+    mixed = [x + (x_prev - x) * p["mu"][i] for i in range(5)]
+    r = dense(mixed[0], p["wr"])
+    k = dense(mixed[1], p["wk"])
+    v = dense(mixed[2], p["wv"])
+    logw = -torch.exp(p["w0"] + dense(torch.tanh(dense(mixed[3], p["w1"])),
+                                      p["w2"]).float())
+    g = F.silu(dense(mixed[4], p["wg"]))
+    return r, k, v, logw, g
+
+
+def _shift(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """``t`` one step later along ``dim`` (a zero first, the last dropped)."""
+    return torch.cat([torch.zeros_like(t.narrow(dim, 0, 1)),
+                      t.narrow(dim, 0, t.shape[dim] - 1)], dim=dim)
+
+
+def rwkv6_train(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D) residual delta, the scan through
+    ``ops.linear_scan``."""
+    B, T, D = x.shape
+    di, _, heads, headdim = _dims(cfg)
+    h = apply_norm(cfg.norm, x, p["norm"])
+    r, k, v, logw, g = _rwkv6_project(cfg, p, h, _shift(h, 1))
+
+    def split(t):
+        return t.reshape(B, T, heads, headdim).transpose(1, 2)
+
+    rh, kh, vh, wh = split(r), split(k), split(v), split(logw)
+    # exclusive-decay trick: shift (k, v, w) one step so the scan yields
+    # y_t = r_t . h_{t-1}; the current-token bonus u is added directly.
+    ksh = _shift(kh, 2).to(x.dtype).contiguous()
+    vsh = _shift(vh, 2).contiguous()
+    wsh = _shift(wh, 2).contiguous()
+    y = ops.linear_scan(rh.contiguous(), ksh, vsh, wsh)
+    u = p["u"].reshape(heads, headdim)
+    bonus = torch.sum(rh * u[None, :, None, :].to(x.dtype) * kh, dim=-1,
+                      keepdim=True) * vh
+    y = (y + bonus).transpose(1, 2).reshape(B, T, di)
+    y = apply_norm("rmsnorm", y, p["ln_x"]) * g
+    return dense(y, p["wo"])
+
+
+def rwkv6_cache_specs(cfg: ArchConfig, batch: int) -> SpecTree:
+    _, _, heads, headdim = _dims(cfg)
+    return {"x_prev": ((batch, cfg.d_model), dtype_of(cfg)),
+            "state": ((batch, heads, headdim, headdim), torch.float32)}
+
+
+def rwkv6_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One step.  x: (B, D); cache: {x_prev (B, D), state (B, H, hd, hd)}.
+    Returns (residual delta (B, D), new cache), as the JAX version does."""
+    B, D = x.shape
+    di, _, heads, headdim = _dims(cfg)
+    h = apply_norm(cfg.norm, x, p["norm"])
+    r, k, v, logw, g = _rwkv6_project(cfg, p, h[:, None],
+                                      cache["x_prev"][:, None])
+    r, k, v, logw, g = r[:, 0], k[:, 0], v[:, 0], logw[:, 0], g[:, 0]
+
+    def split(t):
+        return t.reshape(B, heads, headdim)
+
+    rh, kh, vh = split(r), split(k), split(v)
+    wh = torch.exp(split(logw))
+    u = p["u"].reshape(1, heads, headdim)
+    kv = kh[..., :, None].float() * vh[..., None, :].float()
+    wkv = cache["state"] + u[..., :, None] * kv
+    y = torch.einsum("bhk,bhkd->bhd", rh.float(), wkv)
+    new_state = cache["state"] * wh[..., :, None] + kv
+    y = y.to(x.dtype).reshape(B, di)
+    y = apply_norm("rmsnorm", y, p["ln_x"]) * g
+    return dense(y, p["wo"]), {"x_prev": h, "state": new_state}

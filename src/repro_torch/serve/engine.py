@@ -7,16 +7,17 @@ alone, asserted in the tests), and every batch runs on ``config.device``
 through one of two backends.  Planned networks go through one
 ``PreparedNetwork``: one host-to-device copy of the assembled batch, one
 ``rir_matmul`` launch per layer, one device-to-host copy of the results.
-LMs (``arch=``, dense family) run prefill, then greedy decode: every
-decode step's attention layers each launch ``gqa_decode`` once, the tokens
-stay on the device, and one copy at the end brings the batch's tokens
-back.  Plan resolution rides the
-degradation ladder (``repro_torch.plan.resolve_plan``) against a warm
-``PlanCache`` shared across workers, and a request admitted at a degraded
-tier upgrades itself: a background thread retries the full planner
-(``repro_torch.plan.upgrade_plan``) and atomically swaps in the tier-1
-prepared network once it recovers — the serving loop never blocks on
-planning.
+LMs (``arch=``) run prefill, then greedy decode: every decode step's
+attention layers each launch ``gqa_decode`` once, the tokens stay on the
+device, and one copy at the end brings the batch's tokens back.  An SSM
+(rwkv6) scans its prompt in through ``decode_step``, one token at a time,
+as the JAX engine does (``serve.prefill_ms`` covers that scan-in).  Plan
+resolution rides the degradation ladder (``repro_torch.plan.resolve_plan``)
+against a warm ``PlanCache`` shared across workers, and a request admitted
+at a degraded tier upgrades itself: a background thread retries the full
+planner (``repro_torch.plan.upgrade_plan``) and atomically swaps in the
+tier-1 prepared network once it recovers — the serving loop never blocks
+on planning.
 
 Pipeline::
 
@@ -250,7 +251,15 @@ class _LMBackend:
         with torch.inference_mode():
             tokens = torch.from_numpy(prompts).to(self.device)
             t0 = time.perf_counter()
-            cache, logits = self.model.prefill(tokens, self.max_seq)
+            if self.cfg.family == "ssm":
+                # scan the prompt in one token at a time, as the JAX engine
+                # does: the recurrent states come from stepping
+                cache = self.model.init_cache(B, self.max_seq)
+                for t in range(self.config.prompt_len):
+                    cache, logits = self.model.decode_step(cache,
+                                                           tokens[:, t])
+            else:
+                cache, logits = self.model.prefill(tokens, self.max_seq)
             self._fence()
             t_prefill = time.perf_counter() - t0
             obs.observe("serve.prefill_ms", t_prefill * 1e3)

@@ -7,7 +7,9 @@ Run on a machine with an NVIDIA card and ``nvcc``:
 Each kernel is held against its plain PyTorch version on the same device:
 ``rir_matmul`` at 2e-4 for f32 (fp32 sums in another order) and 2e-2 for
 bf16, ``gqa_decode`` at the JAX sweep's 5e-4 / 3e-2 (softmax sums in
-another order, merged across splits).  Served outputs, batched against the
+another order, merged across splits), ``linear_scan`` at 1e-4 / 2e-2
+against the plain chunked version (the same algorithm, sums in another
+order) and at the JAX sweep's 3e-3 against the stepwise recurrence.  Served outputs, batched against the
 same requests one at a time, agree bit for bit.
 """
 import numpy as np
@@ -173,7 +175,8 @@ def test_lm_decode_on_card_matches_cpu(cuda):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config("llama3p2_3b", smoke=True)
-    cpu = build_model(cfg).init(torch.Generator().manual_seed(0))
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
     dev = build_model(cfg, device=cuda).load_params(cpu.params())
     toks = torch.randint(0, cfg.vocab, (2, 12),
                          generator=torch.Generator().manual_seed(1))
@@ -186,3 +189,122 @@ def test_lm_decode_on_card_matches_cpu(cuda):
         c_dev, l_dev = dev.decode_step(c_dev, toks[:, t].to(cuda))
         torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=2e-4, atol=2e-4)
     assert gk.launch_count() == before + 4 * cfg.n_layers
+
+
+# ----------------------------------------------------------------- linear_scan
+def _scan_inputs(b, h, t, dk, dv, dtype, device, seed, decay=None):
+    """q, k, v ~ N(0, 1) in ``dtype``; log decay -|N(0, 1)| * 0.2 in f32
+    (the JAX sweep's), or the constant ``decay``."""
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn(b, h, t, dk, generator=gen).to(device, dtype)
+    k = torch.randn(b, h, t, dk, generator=gen).to(device, dtype)
+    v = torch.randn(b, h, t, dv, generator=gen).to(device, dtype)
+    w = -(torch.randn(b, h, t, dk, generator=gen).abs() * 0.2) \
+        if decay is None else torch.full((b, h, t, dk), float(decay))
+    return q, k, v, w.to(device)
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv", [
+    (2, 3, 128, 32, 64), (1, 2, 256, 64, 64), (2, 1, 192, 16, 16),  # JAX's
+    (2, 4, 128, 64, 16), (1, 2, 64, 16, 32),        # dk != dv
+    (8, 32, 1024, 64, 64),                          # rwkv6-1.6b training
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_linear_scan_matches_plain_on_card(cuda, b, h, t, dk, dv, dtype,
+                                           tol):
+    from repro_torch.kernels import linear_scan as lk
+    q, k, v, w = _scan_inputs(b, h, t, dk, dv, dtype, cuda, b + t + dk)
+    before = lk.launch_count()
+    y = ops.linear_scan(q, k, v, w)
+    torch.cuda.synchronize()
+    assert lk.launch_count() == before + 1
+    assert y.dtype == dtype and y.shape == v.shape
+    want = ref.linear_scan_chunked(q, k, v, w)
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("t", [1, 5, 63, 65, 100, 200])
+def test_linear_scan_ragged_t_on_card(cuda, t):
+    """Any T runs the kernel (the last chunk masked): held against the
+    stepwise recurrence at the JAX sweep's 3e-3."""
+    q, k, v, w = _scan_inputs(2, 2, t, 32, 32, torch.float32, cuda, t)
+    y = ops.linear_scan(q, k, v, w)
+    torch.testing.assert_close(y, ref.linear_scan(q, k, v, w), rtol=3e-3,
+                               atol=3e-3)
+
+
+def test_linear_scan_decay_underflow_on_card(cuda):
+    """A log decay of -60 kills all history (e^cum underflows to 0 inside a
+    chunk): y_t = (q_t . k_t) v_t, with no NaN."""
+    q, k, v, w = _scan_inputs(1, 2, 128, 16, 16, torch.float32, cuda, 3,
+                              decay=-60.0)
+    y = ops.linear_scan(q, k, v, w)
+    expect = torch.einsum("bhtd,bhtd->bht", q, k)[..., None] * v
+    assert torch.isfinite(y).all()
+    torch.testing.assert_close(y, expect, rtol=1e-4, atol=1e-4)
+
+
+def test_linear_scan_grad_on_card(cuda):
+    """The Function's gradient (kernel forward, plain chunked backward)
+    against autograd straight through the plain chunked version."""
+    ins = _scan_inputs(2, 2, 128, 32, 64, torch.float32, cuda, 11)
+    g = torch.randn(2, 2, 128, 64, generator=torch.Generator()
+                    .manual_seed(12)).to(cuda)
+    a = [x.clone().requires_grad_(True) for x in ins]
+    b = [x.clone().requires_grad_(True) for x in ins]
+    ga = torch.autograd.grad(ops.linear_scan(*a), a, g)
+    gb = torch.autograd.grad(ref.linear_scan_chunked(*b), b, g)
+    for x, y in zip(ga, gb):
+        assert torch.isfinite(x).all()
+        torch.testing.assert_close(x, y, rtol=0,
+                                   atol=1e-4 * float(y.abs().max()))
+
+
+def test_linear_scan_rejects_what_the_kernel_does_not_take(cuda):
+    q, k, v, w = _scan_inputs(1, 2, 64, 32, 32, torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.linear_scan(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                        v, w[..., :24].contiguous())
+    with pytest.raises(TypeError):
+        ops.linear_scan(q.bfloat16(), k, v, w)
+    with pytest.raises(TypeError, match="log_decay"):
+        ops.linear_scan(q, k, v, w.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.linear_scan(q.transpose(2, 3).contiguous().transpose(2, 3), k,
+                        v, w)
+    with pytest.raises(ValueError, match="operands on"):
+        ops.linear_scan(q, k, v.cpu(), w)
+    with pytest.raises(ValueError, match="shapes"):
+        ops.linear_scan(q, k[:, :1].contiguous(), v, w)
+
+
+def test_rwkv6_loss_and_grads_on_card_match_cpu(cuda):
+    """SMOKE rwkv6 (2 layers, f32, TF32 off, parameters at 0.2 so that the
+    scan shapes the loss): the loss and every gradient on the card
+    (``linear_scan`` forward kernel) against the CPU, within 2e-4 relative
+    (of max |g| for each gradient)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import linear_scan as lk
+    from repro_torch.models import build_model
+    cfg = get_config("rwkv6_1p6b", smoke=True)
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0), scale=0.2)
+    dev = build_model(cfg, device=cuda).load_params(cpu.params())
+    toks = torch.randint(0, cfg.vocab, (2, 129),
+                         generator=torch.Generator().manual_seed(1))
+    out = {}
+    for name, m, t in (("cpu", cpu, toks), ("cuda", dev, toks.to(cuda))):
+        m.requires_grad_(True)
+        params = list(m.params().values())
+        before = lk.launch_count()
+        loss = m.loss({"tokens": t})
+        grads = torch.autograd.grad(loss, params)
+        out[name] = (loss, grads, lk.launch_count() - before)
+    assert out["cpu"][2] == 0
+    assert out["cuda"][2] == 2 * cfg.n_layers    # forward + remat recompute
+    torch.testing.assert_close(out["cuda"][0].cpu(), out["cpu"][0],
+                               rtol=2e-4, atol=0)
+    for gd, gc in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(gd.cpu(), gc, rtol=0,
+                                   atol=2e-4 * float(gc.abs().max()))

@@ -1,13 +1,17 @@
 """The port's kernel layer on the CPU against the JAX package's.
 
-``repro_torch.kernels.ops.rir_matmul`` and ``ops.gqa_decode`` on CPU
-tensors run their plain PyTorch versions; each is held against the JAX
-Pallas kernel (interpret mode on the CPU) and the JAX ``ref`` oracle over
-the ``test_kernels.py`` sweep, and the port's conv/depthwise versions
-against the JAX ones.  The same inputs, made with numpy from a seed, go to
-both.  Tolerances are the JAX sweeps': 2e-4 (``rir_matmul``) and 5e-4
-(``gqa_decode``) for f32, sums in another order; 2e-2 and 3e-2 for bf16
-(8-bit mantissa, rounded at other places by the two frameworks).
+``repro_torch.kernels.ops.rir_matmul``, ``ops.gqa_decode`` and
+``ops.linear_scan`` on CPU tensors run their plain PyTorch versions; each
+is held against the JAX Pallas kernel (interpret mode on the CPU) and the
+JAX ``ref`` oracle over the ``test_kernels.py`` sweep, and the port's
+conv/depthwise versions against the JAX ones.  The same inputs, made with
+numpy from a seed, go to both.  Tolerances are the JAX sweeps': 2e-4
+(``rir_matmul``) and 5e-4 (``gqa_decode``) for f32, sums in another order;
+2e-2 and 3e-2 for bf16 (8-bit mantissa, rounded at other places by the two
+frameworks).  ``linear_scan``: 1e-4 in f32 against the Pallas kernel (the
+same chunked algorithm), the JAX sweep's 3e-3 against the stepwise oracle,
+2e-2 for bf16 q/k/v; its gradient (recomputed through the chunked version
+on both sides) within 1e-4 of max |g|.
 """
 import re
 
@@ -198,3 +202,118 @@ def test_gqa_decode_constants_mirror_the_source():
                                                             gk.D_MAX)
     assert gk.n_splits(1024) == 8 and gk.n_splits(1000) == 8
     assert gk.smem_bytes(3, 128) < 48 * 1024 < gk.smem_bytes(8, 256)
+
+
+# ----------------------------------------------------------------- linear_scan
+def _scan_np(rng, b, h, t, dk, dv, decay_scale=0.2):
+    """q, k, v ~ N(0, 1) and log decay -|N(0, 1)| * scale: the JAX sweep's
+    inputs."""
+    q, k = _np(rng, (b, h, t, dk)), _np(rng, (b, h, t, dk))
+    v = _np(rng, (b, h, t, dv))
+    w = -np.abs(_np(rng, (b, h, t, dk))) * np.float32(decay_scale)
+    return q, k, v, w
+
+
+SCAN_SHAPES = [(2, 3, 128, 32, 64), (1, 2, 256, 64, 64), (2, 1, 192, 16, 16)]
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv", SCAN_SHAPES)
+def test_linear_scan_matches_jax_kernel_and_ref(b, h, t, dk, dv):
+    """f32: the JAX Pallas kernel (interpret mode) at 1e-4, the same
+    chunked algorithm; the JAX stepwise oracle at the JAX sweep's 3e-3."""
+    arrs = _scan_np(np.random.default_rng(t + dk), b, h, t, dk, dv)
+    y = ops.linear_scan(*map(torch.from_numpy, arrs))
+    assert y.dtype == torch.float32 and y.shape == (b, h, t, dv)
+    jarrs = [jnp.asarray(a) for a in arrs]
+    assert_allclose(y.numpy(), np.asarray(jops.linear_scan(*jarrs)),
+                    rtol=1e-4, atol=1e-4)
+    assert_allclose(y.numpy(), np.asarray(jref.linear_scan(*jarrs)),
+                    rtol=3e-3, atol=3e-3)
+
+
+@pytest.mark.parametrize("b,h,t,dk,dv", SCAN_SHAPES)
+def test_linear_scan_bf16_matches_jax(b, h, t, dk, dv):
+    """bf16 q/k/v (f32 log decay): both packages compute in f32 and round
+    the output to bf16; 2e-2."""
+    q, k, v, w = _scan_np(np.random.default_rng(t), b, h, t, dk, dv)
+    (qt, qj), (kt, kj), (vt, vj) = _both(q, "bf16"), _both(k, "bf16"), \
+        _both(v, "bf16")
+    y = ops.linear_scan(qt, kt, vt, torch.from_numpy(w))
+    assert y.dtype == torch.bfloat16
+    want = jops.linear_scan(qj, kj, vj, jnp.asarray(w))
+    assert_allclose(_f32(y), _f32(want), rtol=2e-2, atol=2e-2)
+
+
+def test_linear_scan_decay_underflow_matches_jax():
+    """-60 log decay kills all history (the JAX decay-semantics case):
+    y_t = (q_t . k_t) v_t, no NaN, against the Pallas kernel at 1e-4."""
+    rng = np.random.default_rng(9)
+    q, k, v = _np(rng, (1, 1, 16, 8)), _np(rng, (1, 1, 16, 8)), \
+        _np(rng, (1, 1, 16, 8))
+    w = np.full((1, 1, 16, 8), -60.0, np.float32)
+    y = ops.linear_scan(*map(torch.from_numpy, (q, k, v, w))).numpy()
+    expect = np.einsum("bhtd,bhtd->bht", q, k)[..., None] * v
+    assert np.isfinite(y).all()
+    assert_allclose(y, expect, rtol=1e-4, atol=1e-4)
+    assert_allclose(y, np.asarray(jops.linear_scan(
+        *map(jnp.asarray, (q, k, v, w)))), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("t", [100, 200, 37])
+def test_linear_scan_ragged_t_matches_stepwise(t):
+    """A T that 64 does not divide: the plain chunked version shrinks its
+    chunk (the kernel masks its last chunk instead), both against the
+    port's stepwise recurrence at 3e-3."""
+    arrs = _scan_np(np.random.default_rng(t), 2, 2, t, 32, 16)
+    ts = list(map(torch.from_numpy, arrs))
+    y = ops.linear_scan(*ts)
+    assert_allclose(y.numpy(), ref.linear_scan(*ts).numpy(), rtol=3e-3,
+                    atol=3e-3)
+
+
+def test_linear_scan_stepwise_ref_matches_jax():
+    arrs = _scan_np(np.random.default_rng(5), 2, 2, 48, 16, 24)
+    y = ref.linear_scan(*map(torch.from_numpy, arrs))
+    assert_allclose(y.numpy(), np.asarray(jref.linear_scan(
+        *map(jnp.asarray, arrs))), rtol=1e-5, atol=1e-5)
+
+
+def test_linear_scan_grad_matches_jax():
+    """``torch.autograd.grad`` through the port's ``ops.linear_scan``
+    against ``jax.grad`` through ``repro``'s (its ``custom_vjp``: both
+    recompute through the chunked version); 1e-4 x max |g| per operand."""
+    import jax
+    arrs = _scan_np(np.random.default_rng(13), 1, 2, 128, 16, 32)
+    g = _np(np.random.default_rng(14), (1, 2, 128, 32))
+    ts = [torch.from_numpy(a).requires_grad_(True) for a in arrs]
+    got = torch.autograd.grad(ops.linear_scan(*ts), ts, torch.from_numpy(g))
+
+    def f(*xs):
+        return jnp.sum(jops.linear_scan(*xs) * jnp.asarray(g))
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3))(*map(jnp.asarray, arrs))
+    for name, a, b in zip("qkvw", got, want):
+        b = np.asarray(b)
+        assert np.isfinite(a.numpy()).all(), name
+        assert_allclose(a.numpy(), b, rtol=0,
+                        atol=1e-4 * np.abs(b).max(), err_msg=name)
+
+
+def test_linear_scan_cuda_wrapper_checks_before_any_build():
+    from repro_torch.kernels import linear_scan as lk
+    q = torch.zeros(1, 2, 64, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        lk.linear_scan_cuda(q, q, q, q)
+    assert lk._lib is None
+    assert lk.library_path().parent == build.BUILD_DIR
+    assert lk.library_path().name.startswith("liblinear_scan-")
+
+
+def test_linear_scan_constants_mirror_the_source():
+    from repro_torch.kernels import linear_scan as lk
+    src = lk.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert (int(consts["kChunk"]), int(consts["kSub"])) == (lk.CHUNK, lk.SUB)
+    for d in lk.HEAD_DIMS:
+        assert f"case {d}: return launch_dims" in src
+        assert f"case {d}: return launch_dv" in src

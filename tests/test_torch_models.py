@@ -96,8 +96,8 @@ def pair(request):
     cfg, jcfg = get_config(arch, smoke=True), jget_config(arch, smoke=True)
     jm = jbuild_model(jcfg)
     params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(3)))
-    model = build_model(cfg).load_params(to_torch_lm_params(params, cfg,
-                                                            "cpu"))
+    model = build_model(cfg, device="cpu").load_params(
+        to_torch_lm_params(params, cfg, "cpu"))
     toks = np.random.default_rng(4).integers(
         0, cfg.vocab, size=(B, T)).astype(np.int32)
     P = T - N_DECODE
@@ -151,7 +151,7 @@ def test_prefill_plus_decode_equals_full_forward():
     """logits(prefill(T-1) + decode(1)) == logits(full forward), the JAX
     ``test_prefill_decode_matches_train_path`` bound (2e-4)."""
     cfg = get_config("llama3p2_3b", smoke=True)
-    m = build_model(cfg).init(torch.Generator().manual_seed(1))
+    m = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(1))
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, size=(2, 16)))
     full = m.logits(m.hidden_states(toks)[:, -1])
@@ -162,9 +162,9 @@ def test_prefill_plus_decode_equals_full_forward():
 
 def test_init_draws_every_leaf_from_the_generator():
     cfg = get_config("nemotron_4_15b", smoke=True)
-    a = build_model(cfg).init(torch.Generator().manual_seed(5))
-    b = build_model(cfg).init(torch.Generator().manual_seed(5))
-    c = build_model(cfg).init(torch.Generator().manual_seed(6))
+    a = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    b = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    c = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(6))
     pa, pb, pc = a.params(), b.params(), c.params()
     assert set(pa) == set(param_specs(cfg)) and "layers.1.mixer.norm.b" in pa
     for name, p in pa.items():
@@ -196,10 +196,35 @@ def test_to_torch_lm_params_refuses_bad_trees():
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("dbrx_132b", "6b"), ("llama4_scout_17b", "6b"), ("rwkv6_1p6b", "7"),
-    ("zamba2_2p7b", "7"), ("whisper_small", "8")])
+    ("dbrx_132b", "6b"), ("llama4_scout_17b", "6b"), ("zamba2_2p7b", "7"),
+    ("whisper_small", "8")])
 def test_unported_families_name_their_roadmap_item(arch, item):
     assert arch in ARCH_IDS
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP.md Queue 1 item {item} "):
-        build_model(get_config(arch, smoke=True))
+        build_model(get_config(arch, smoke=True), device="cpu")
+
+
+def test_ssm_runs_rwkv6_only_so_far():
+    """The ssm family runs the rwkv6 mixer; a mamba2 ssm config names the
+    ROADMAP item it waits for."""
+    import dataclasses
+    rwkv = get_config("rwkv6_1p6b", smoke=True)
+    assert build_model(rwkv, device="cpu").cfg.family == "ssm"
+    mamba = dataclasses.replace(rwkv, name="mamba2-test")
+    with pytest.raises(NotImplementedError,
+                       match=r"ROADMAP.md Queue 1 item 7 .*mamba2"):
+        build_model(mamba, device="cpu")
+
+
+def test_build_model_runs_on_the_card_by_default(monkeypatch):
+    """``build_model``/``LMModel`` (and ``api.build_model``) default to
+    ``device="cuda"`` and raise where there is no CUDA, before allocating."""
+    from repro_torch import api
+    from repro_torch.models import LMModel
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("llama3p2_3b", smoke=True)
+    for build in (api.build_model, build_model, LMModel):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build(cfg)
+    assert build_model(cfg, device="cpu").device.type == "cpu"

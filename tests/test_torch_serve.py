@@ -103,8 +103,9 @@ def test_config_device_and_lm_mode(monkeypatch):
     assert ServeConfig(graph="tiny").device == "cuda"
     lm = ServeConfig(arch="llama3p2_3b")
     assert lm.device == "cuda" and (lm.prompt_len, lm.gen) == (32, 16)
-    for arch, item in (("rwkv6_1p6b", "7"), ("zamba2_2p7b", "7"),
-                       ("whisper_small", "8"), ("dbrx_132b", "6b")):
+    assert ServeConfig(arch="rwkv6_1p6b").device == "cuda"
+    for arch, item in (("zamba2_2p7b", "7"), ("whisper_small", "8"),
+                       ("dbrx_132b", "6b")):
         with pytest.raises(NotImplementedError,
                            match=rf"ROADMAP.md Queue 1 item {item} "):
             ServeConfig(arch=arch)
@@ -254,7 +255,11 @@ bad = sorted(m for m in sys.modules
 print(len(names), bad)
 assert not bad, bad
 for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
-            "repro_torch.models.lm", "repro_torch.configs.llama3p2_3b"):
+            "repro_torch.kernels.linear_scan", "repro_torch.models.lm",
+            "repro_torch.models.ssm", "repro_torch.configs.llama3p2_3b",
+            "repro_torch.optim.adamw", "repro_torch.optim.schedule",
+            "repro_torch.data.pipeline", "repro_torch.distributed.stepfn",
+            "repro_torch.launch.train"):
     assert mod in names and mod in sys.modules, mod
 """
 
