@@ -6,9 +6,9 @@
 Phases, each of which raises on failure (nothing is caught and skipped):
 
 1. Device and build: the card's name and power limit (``nvidia-smi``), and
-   the ``rir_matmul``, ``gqa_decode`` and ``linear_scan`` CUDA kernels built
-   from ``src/repro_torch/kernels/csrc``, one ``nvcc`` each, started
-   together (seconds and ``ptxas`` report printed).
+   the ``rir_matmul``, ``gqa_decode``, ``linear_scan`` and ``birrd_apply``
+   CUDA kernels built from ``src/repro_torch/kernels/csrc``, one ``nvcc``
+   each, started together (seconds and ``ptxas`` report printed).
 2. Planning: ResNet-50 and MobileNet-V3 at batch 8 with the serve engine's
    planner options, through one plan cache the engine then reuses.
 3. Kernel vs plain on the card: ``rir_matmul`` against
@@ -28,7 +28,8 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    under ``torch.profiler``: the device's busy share and its time by kernel.
 7. ``gqa_decode`` against ``repro_torch.kernels.ref.gqa_decode`` on the
    card: the JAX sweep's shapes in f32 and bf16 with lengths in [S/2, S],
-   a ragged S, length 1 and lengths on split boundaries; then the
+   a ragged S, length 1 and lengths on split boundaries, zamba2's decode
+   shape (B 8, Hq = Hkv = 32, D 80, lengths 64-80); then the
    llama3.2-3b decode shape (B 8, Hq 24, Hkv 8, D 128, S 1024, lengths
    960-1023, bf16), timed over one cache per layer (as decode reads them)
    against the plain version, ``scaled_dot_product_attention`` (yardstick
@@ -74,6 +75,42 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     |logit|.  Each asserts that zeroing the scan's output moves the logits
     by at least 0.1 of their max.
 
+13. ``birrd_apply`` against its plain versions on the card: the JAX
+    sweep's cases ((8, 128), (16, 256), (16, 512) with pairs; the pure
+    reorder at aw 8), every width 2-64 (a structured relayout routed in
+    closed form at 32 and 64), a ragged d and bf16, bit for bit against
+    the plain stage loop and within 1e-5 of the RIR oracle; random dense
+    stage matrices within 1e-5; then the full-size case (aw 16, the demo's
+    groups of 4 to ports 0, 4, 8, 12, d = 401,408 columns, one ResNet-50
+    batch-8 conv2 activation) timed against the plain version, one
+    ``torch.matmul(P, x)`` with the program composed on the host
+    (yardstick only) and the byte bound.  Its times are device time, from
+    the kernel events of a ``torch.profiler`` loop (CUDA events around
+    the same loop printed beside them; the plain version and the
+    yardstick timed with their launches queued behind a spin kernel).
+14. The co-switching path: ``repro_torch.launch.coswitch`` parts 1-5 on
+    the card (planning, ``rir_matmul``'s epilogue layout and
+    ``birrd_reduce`` against the oracle, the planned GEMM chain, ResNet-50
+    through ``execute_network``, the joint tile co-search), each check
+    asserted; at least 1 ``birrd_apply`` and 3 + 12 ``rir_matmul``
+    launches.
+15. zamba2 serving: ``api.ServeEngine`` on zamba2-2.7b at full width (54
+    Mamba2 layers, d_model 2560, 80 SSM heads, the shared attention block
+    9 times, random bf16 weights from a seed at 0.08) at ``max_batch=8``,
+    prompt 64 scanned in through ``decode_step``, gen 16, 8 requests: 9
+    ``gqa_decode`` launches a step (at B 8, Hq = Hkv = 32, D 80); 2 of
+    them again one a batch, identical tokens; one batch under
+    ``torch.profiler`` for the device's busy share.  ``gqa_decode`` timed
+    at that decode shape from its kernel events, as in 13.  Then
+    ``hidden_states`` in bf16 over a served sequence extended to 1024
+    tokens: each layer's ``linear_scan`` output
+    (H 80, dk = dv = 64) against the plain chunked version on that layer's
+    inputs within 2e-2 x its max, the kernel timed at that shape against
+    its plain version and its bound.  Then all 54 layers in f32 (TF32
+    off): decode over 68 tokens against ``hidden_states`` within 2e-4 x
+    max |logit|.  Each asserts that zeroing the scan's output moves the
+    logits by at least 0.1 of their max.
+
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
 exits non-zero and prints no result.  TF32 is switched off for PyTorch's
@@ -99,6 +136,9 @@ sys.path.insert(0, str(ROOT / "src"))
 FP32_PEAK_FLOPS = 67e12
 BF16_PEAK_FLOPS = 989e12
 HBM_BYTES_PER_S = 3.35e12
+# the spin that holds the card while ``queued_ms`` issues its calls:
+# ~0.1 s at the H100's 1.98 GHz boost clock
+QUEUE_SPIN_CYCLES = 200_000_000
 REPLACES = "src/repro/kernels/rir_matmul.py:66"
 SOURCE = "src/repro_torch/kernels/csrc/rir_matmul.cu"
 GQA_REPLACES = "src/repro/kernels/gqa_decode.py:61"
@@ -169,6 +209,32 @@ SSM_F32_TOL = 2e-4          # x max |logit|
 # zeroing the scan must move the logits by this x max |logit|, so that the
 # checks of phase 12 run where the scan's output matters
 SSM_MIN_SCAN_EFFECT = 0.1
+BIRRD_REPLACES = "src/repro/kernels/birrd_reduce.py:90"
+BIRRD_SOURCE = "src/repro_torch/kernels/csrc/birrd_apply.cu"
+# BIRRD against its plain version: routed programs are exact (every stage
+# an exact copy or one f32 sum of two values), so bit for bit; against the
+# RIR oracle (another summation order) and on dense stage matrices, the
+# JAX sweep's 1e-5
+BIRRD_TOL = 1e-5
+# the full-size case: the paper's array width, the demo's pattern (groups
+# of 4 to ports 0, 4, 8, 12), one ResNet-50 batch-8 conv2 activation
+# (8 x 56 x 56 x 256 values) spread over the 16 wires
+BIRRD_FULL = (16, 8 * 56 * 56 * 256 // 16)
+# zamba2-2.7b served at full width, random weights from ZAMBA_SEED drawn at
+# ZAMBA_SCALE: at the 0.02 init the mamba2 mixer's y * silu(z) lies below
+# its output norm's epsilon and no logits check sees the scan
+ZAMBA_ARCH = "zamba2_2p7b"
+ZAMBA_SMOKE = False
+ZAMBA_SCALE = 0.08
+ZAMBA_SEED = 0
+ZAMBA_BATCH = 8
+ZAMBA_PROMPT = 64
+ZAMBA_GEN = 16
+ZAMBA_SEQ_REQUESTS = 2
+ZAMBA_SCAN_T = 1024          # the bf16 forward the kernel is held on
+# all 54 layers in f32: decode over every token against hidden_states
+ZAMBA_F32 = {"batch": 2, "seq": 68, "scale": ZAMBA_SCALE}
+ZAMBA_F32_TOL = 2e-4         # x max |logit|
 
 
 def log(msg: str) -> None:
@@ -197,6 +263,85 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5):
+    """Device milliseconds of one call of ``fn()``, from the kernel events
+    of a ``torch.profiler`` loop of ``iters`` calls: the mean duration of
+    the events of each name in ``kernels`` (each launched once a call),
+    summed.  The host's time to issue a call is left out.  The profiler
+    may keep only some of a loop's events (37 of 50 in one run), so the
+    mean per event is taken, not the loop's sum over ``iters``.  Returns
+    the time and ``[name, device ms in all, events kept]`` a kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    by_name, _ = device_time_by_kernel(prof)
+    ms, seen = 0.0, []
+    for kernel in kernels:
+        us = sum(u for u, name, _ in by_name if kernel in name)
+        n = sum(c for _, name, c in by_name if kernel in name)
+        if not n:
+            raise AssertionError(f"the profiler saw no {kernel} event")
+        ms += us / n / 1e3
+        seen.append([kernel, round(us / 1e3, 4), n])
+    return ms, seen
+
+
+def queued_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device milliseconds of ``fn()`` over ``iters`` back-to-back
+    calls issued while a spin kernel holds the device: the calls queue up
+    behind it, so the CUDA events around them time the device's work and
+    not the host's pace of issuing calls, which ``cuda_ms`` measures
+    wherever a call's kernels are shorter than its host cost.  A call that
+    waits for the device ends the queue and is timed as ``cuda_ms``
+    times it."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, ops_: float, peak: float) -> dict:
+    """The least time the card could take: the bytes over the memory rate
+    or the operations over ``peak``, whichever is larger."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops_ / peak * 1e3
+    return {"bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "byte_ms": byte_ms, "op_ms": op_ms}
+
+
+def gqa_bound(B, Hq, Hkv, D, n_valid) -> dict:
+    """``gqa_decode``'s bound in bf16: the valid K/V rows, q and the output
+    moved once, the int32 lengths read; q.k and p.v, 2 FLOP a MAC."""
+    nbytes = 2.0 * (2 * n_valid * Hkv * D + 2 * B * Hq * D) + 4 * B
+    flops = 4.0 * n_valid * Hq * D
+    return {**bound(nbytes, flops, BF16_PEAK_FLOPS),
+            "mbytes": nbytes / 1e6, "mflop": flops / 1e6}
+
+
+def cycling(fn, n: int):
+    """A call of ``fn(i)`` for i = 0, 1, ..., n-1, 0, ... at every call:
+    each call finds its own operands (one cache a layer) cold in L2."""
+    order = itertools.cycle(range(n))
+    return lambda: fn(next(order))
 
 
 def max_err(got, want) -> float:
@@ -242,7 +387,7 @@ def device_time_by_kernel(prof):
 
 
 # ------------------------------------------------------------------- phases
-def phase_build(rk, gk, lk) -> dict:
+def phase_build(rk, gk, lk, bk) -> dict:
     import torch
     name = card_line()
     log(f"[device] {name}")
@@ -253,22 +398,23 @@ def phase_build(rk, gk, lk) -> dict:
     log("[device] TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=3) as ex:   # one nvcc each, at once
-        for fut in [ex.submit(m.load) for m in (rk, gk, lk)]:
+    with ThreadPoolExecutor(max_workers=4) as ex:   # one nvcc each, at once
+        for fut in [ex.submit(m.load) for m in (rk, gk, lk, bk)]:
             fut.result()
     secs = time.perf_counter() - t0
-    for m in (rk, gk, lk):
+    for m in (rk, gk, lk, bk):
         log(f"[build] {m.library_path().name}: nvcc {m.build_seconds:.1f} s")
         for line in m.build_log.splitlines():
             if "entry function" in line:
                 log(f"[build] {line.strip()[:110]}")
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {line.strip()}")
-    log(f"[build] all three libraries built and loaded in {secs:.1f} s")
+    log(f"[build] all four libraries built and loaded in {secs:.1f} s")
     return {"card": name, "build_s": secs,
             "nvcc_s": {"rir_matmul": rk.build_seconds,
                        "gqa_decode": gk.build_seconds,
-                       "linear_scan": lk.build_seconds}}
+                       "linear_scan": lk.build_seconds,
+                       "birrd_apply": bk.build_seconds}}
 
 
 def phase_plan(api):
@@ -558,7 +704,10 @@ def phase_gqa_sweep(torch, ops, ref) -> dict:
              (3, 8, 1, 64, 2048, None),                     # the JAX sweep
              (2, 8, 2, 128, 1000, None),                    # ragged S
              (5, 6, 2, 128, 5 * SPLIT,                      # length 1, on
-              [1, SPLIT, SPLIT + 1, 2 * SPLIT, 5 * SPLIT])]  # split edges
+              [1, SPLIT, SPLIT + 1, 2 * SPLIT, 5 * SPLIT]),  # split edges
+             (ZAMBA_BATCH, 32, 32, 80, ZAMBA_PROMPT + ZAMBA_GEN,  # zamba2's
+              list(range(ZAMBA_PROMPT, ZAMBA_PROMPT + ZAMBA_GEN,   # decode
+                         ZAMBA_GEN // ZAMBA_BATCH)))]               # shape
     worst, n = {"f32": 0.0, "bf16": 0.0}, 0
     for b, hq, hkv, d, S, lens in cases:
         for dt, tdt in dts.items():
@@ -615,29 +764,18 @@ def phase_gqa_llama(torch, api, ops, ref) -> dict:
             attn_mask=mask, enable_gqa=True)[:, :, 0, :]
     sdpa_err = check_close("sdpa yardstick", sdpa(0), want,
                            GQA_TOL["bf16"], GQA_TOL["bf16"])
-    def each_layer(fn):
-        """``fn(i)`` on the next layer's cache at every call."""
-        order = itertools.cycle(range(L))
-        return lambda: fn(next(order))
-
-    ms = cuda_ms(each_layer(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens)),
+    ms = cuda_ms(cycling(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens), L),
                  iters=4 * L, warmup=L)
-    plain_ms = cuda_ms(each_layer(lambda i: ref.gqa_decode(q, ks[i], vs[i],
-                                                           lens)),
+    plain_ms = cuda_ms(cycling(lambda i: ref.gqa_decode(q, ks[i], vs[i],
+                                                        lens), L),
                        iters=L, warmup=2)
-    library_ms = cuda_ms(each_layer(sdpa), iters=4 * L, warmup=L)
-    n_valid = int(lens.sum())
-    nbytes = 2.0 * (2 * n_valid * Hkv * D + 2 * B * Hq * D) + 4 * B
-    flops = 4.0 * n_valid * Hq * D          # q.k and p.v, 2 FLOP a MAC
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / BF16_PEAK_FLOPS * 1e3
+    library_ms = cuda_ms(cycling(sdpa, L), iters=4 * L, warmup=L)
+    gb = gqa_bound(B, Hq, Hkv, D, int(lens.sum()))
     rec = {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
            "lengths": lens.tolist(), "max_abs_err": err,
            "sdpa_max_abs_err": sdpa_err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": max(byte_ms, flop_ms),
-           "bound_by": "bytes" if byte_ms >= flop_ms else "operations",
-           "mbytes": nbytes / 1e6, "mflop": flops / 1e6,
-           "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9}
+           "library_ms": library_ms, **gb,
+           "achieved_gb_s": gb["mbytes"] * 1e6 / (ms * 1e-3) / 1e9}
     log("[gqa] llama shape " + json.dumps(rec))
     del ks, vs
     torch.cuda.empty_cache()
@@ -814,6 +952,16 @@ def scan_work(B, H, T, dk, dv) -> float:
     return float(B * H * work)
 
 
+def scan_bound(q, k, v, w, out) -> dict:
+    """``linear_scan``'s bound: its operands read once and ``out`` written
+    once, against ``scan_work``'s operations at the fp32 rate."""
+    nbytes = float(sum(x.numel() * x.element_size()
+                       for x in (q, k, v, w, out)))
+    flops = scan_work(*q.shape, v.shape[-1])
+    return {**bound(nbytes, flops, FP32_PEAK_FLOPS),
+            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+
+
 def phase_scan_sweep(torch, ops, ref, lk) -> dict:
     """``linear_scan`` against the plain versions: the sweep in f32 and
     bf16, ragged T, a -60 log decay, the training shape (timed), and the
@@ -862,19 +1010,11 @@ def phase_scan_sweep(torch, ops, ref, lk) -> dict:
     ms = cuda_ms(lambda: ops.linear_scan(q, k, v, w), iters=20)
     plain_ms = cuda_ms(lambda: ref.linear_scan_chunked(q, k, v, w), iters=5,
                        warmup=1)
-    nbytes = float(sum(x.numel() * x.element_size() for x in (q, k, v, w))
-                   + want.numel() * want.element_size())
-    flops = scan_work(B, H, T, dk, dv)
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    flop_ms = flops / FP32_PEAK_FLOPS * 1e3
+    sb = scan_bound(q, k, v, w, want)
     rec = {"B": B, "H": H, "T": T, "dk": dk, "dv": dv, "dtype": "bf16",
            "max_abs_err": err, "ref_max_abs": float(want.abs().max()),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None,
-           "bound_ms": max(byte_ms, flop_ms),
-           "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
-           "gflop": flops / 1e9, "gbytes": nbytes / 1e9,
-           "flop_ms": flop_ms, "byte_ms": byte_ms,
-           "achieved_tflop_s": flops / (ms * 1e-3) / 1e12}
+           "ms": ms, "plain_ms": plain_ms, "library_ms": None, **sb,
+           "achieved_tflop_s": sb["gflop"] / ms}
     log("[scan] training shape " + json.dumps(rec))
     del q, k, v, w, want
 
@@ -1219,6 +1359,414 @@ def phase_ssm_f32(torch, api, lk) -> dict:
     return rec
 
 
+def birrd_plain(ref, x, mats, ports):
+    """The plain version of ``ops.birrd_reduce``: the stage loop, then the
+    rows no group targets set to 0."""
+    from repro_torch.kernels.birrd_reduce import _out_port_mask
+    return ref.birrd_apply(x, mats, _out_port_mask(
+        x.shape[0], tuple(ports), x.device))
+
+
+def birrd_case(torch, ops, ref, aw, gids, ports, d, dtype, seed) -> float:
+    """One routed pattern on the card: bit for bit against the plain stage
+    loop, within BIRRD_TOL (bf16: its rounding) of the RIR oracle; returns
+    max |err| against the plain version (0)."""
+    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    x = torch.randn(aw, d, generator=torch.Generator().manual_seed(seed)
+                    ).to(DEV, dtype)
+    y = ops.birrd_reduce(x, gids, ports)
+    torch.cuda.synchronize()
+    name = f"birrd aw={aw} d={d} {dtype} groups={len(ports)}"
+    if y.dtype != dtype or y.shape != (aw, d):
+        raise AssertionError(f"{name}: {y.dtype} {tuple(y.shape)}")
+    mats = _routed_stage_mats(aw, tuple(gids), tuple(ports), x.device)
+    plain = birrd_plain(ref, x, mats, ports)
+    if not torch.equal(y, plain):
+        raise AssertionError(f"{name}: not bit-identical to the plain "
+                             f"version (max |err| {max_err(y, plain):.3e})")
+    oracle = ref.birrd_reduce(x.float(), torch.tensor(gids),
+                              torch.tensor(ports), aw)
+    tol = BIRRD_TOL if dtype == torch.float32 else TOL["bf16"]
+    check_close(f"{name} vs the RIR oracle", y, oracle, tol, tol)
+    return max_err(y, plain)
+
+
+def phase_birrd(torch, ops, ref, bk) -> dict:
+    """``birrd_apply`` on the card: the JAX sweep's cases, every width, a
+    ragged d, bf16 and dense stage matrices; then the full-size case
+    timed."""
+    import math
+
+    import numpy as np
+    from repro_torch.core.birrd import Birrd
+    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    before = bk.launch_count()
+    n = 0
+    worst = 0.0
+    for aw, d in ((8, 128), (16, 256), (16, 512)):          # the JAX sweep
+        gids = [i // 2 for i in range(aw)]
+        worst = max(worst, birrd_case(torch, ops, ref, aw, gids,
+                                      [2 * g for g in range(aw // 2)], d,
+                                      torch.float32, aw + d))
+        n += 1
+    perm = [int(p) for p in np.random.default_rng(60).permutation(8)]
+    x = torch.randn(8, 128, generator=torch.Generator().manual_seed(61)
+                    ).to(DEV)
+    y = ops.birrd_reduce(x, list(range(8)), perm)
+    moved = torch.zeros_like(x)
+    moved[perm] = x
+    if not torch.equal(y, moved):
+        raise AssertionError("birrd pure reorder at aw 8: values not moved "
+                             "exactly")
+    n += 1
+    # every width: a swap, a full reduction, pairs to scattered ports, the
+    # demo's groups of 4, and structured relayouts routed in closed form
+    patterns = {2: ([0, 1], [1, 0]), 4: ([0, 0, 0, 0], [3]),
+                8: ([0, 0, 1, 1, 2, 2, 3, 3], [6, 0, 2, 4]),
+                16: ([i // 4 for i in range(16)], [0, 4, 8, 12])}
+    for aw in (32, 64):
+        k = int(math.log2(aw))
+        patterns[aw] = (list(range(aw)),
+                        [((i << 2) | (i >> (k - 2))) & (aw - 1)
+                         for i in range(aw)])
+    widths = []
+    for aw, (gids, ports) in patterns.items():
+        for d, dtype in ((1000, torch.float32), (77, torch.float32),
+                         (1000, torch.bfloat16)):
+            worst = max(worst, birrd_case(torch, ops, ref, aw, gids, ports,
+                                          d, dtype, 62 + aw + d))
+            n += 1
+        widths.append(aw)
+    dense_worst = 0.0
+    for aw in (4, 8, 16, 32, 64):
+        S = len(Birrd(aw).perms)
+        gen = torch.Generator().manual_seed(63 + aw)
+        mats = (torch.randn(S, aw, aw, generator=gen) / aw ** 0.5).to(DEV)
+        x = torch.randn(aw, 1000, generator=gen).to(DEV)
+        y = ops.birrd_apply_p(x, mats)
+        want = ref.birrd_apply(x, mats)
+        scale = float(want.abs().max())
+        err = max_err(y, want)
+        if not err <= BIRRD_TOL * scale:
+            raise AssertionError(f"birrd dense aw={aw}: max |err| {err:.3e}"
+                                 f" beyond {BIRRD_TOL} x {scale:.3e}")
+        dense_worst = max(dense_worst, err / scale)
+        n += 1
+    log(f"[birrd] sweep: {n} cases, widths {widths}; routed programs bit "
+        f"for bit against the plain version, within {BIRRD_TOL} of the RIR "
+        f"oracle; dense stage matrices worst |err| / max "
+        f"{dense_worst:.2e}")
+
+    # the full-size case, f32
+    aw, d = BIRRD_FULL
+    gids, ports = [i // 4 for i in range(aw)], [0, 4, 8, 12]
+    x = torch.randn(aw, d, generator=torch.Generator().manual_seed(64)
+                    ).to(DEV)
+    mats = _routed_stage_mats(aw, tuple(gids), tuple(ports), x.device)
+    y = ops.birrd_reduce(x, gids, ports)
+    plain = birrd_plain(ref, x, mats, ports)
+    if not torch.equal(y, plain):
+        raise AssertionError("birrd full size: not bit-identical to the "
+                             "plain version")
+    err = max_err(y, plain)
+    check_close("birrd full size vs the RIR oracle", y, ref.birrd_reduce(
+        x, torch.tensor(gids), torch.tensor(ports), aw), BIRRD_TOL,
+        BIRRD_TOL)
+    # the yardstick: one product with the program composed on the host and
+    # the non-target rows zeroed (entries are small integers: exact)
+    m64 = mats.double().cpu()
+    P = m64[0]
+    for m in m64[1:]:
+        P = m @ P
+    keep = torch.zeros(aw, 1, dtype=torch.float64)
+    keep[ports] = 1.0
+    P = (P * keep).float().to(DEV)
+    lib = torch.matmul(P, x)
+    check_close("birrd full size: torch.matmul(P, x)", lib, plain,
+                BIRRD_TOL, BIRRD_TOL)
+    # device times: the kernel's from its profiler events, the plain
+    # version's and the yardstick's with their launches queued; the CUDA
+    # events around back-to-back calls are printed beside them
+    reduce_ = lambda: ops.birrd_reduce(x, gids, ports)  # noqa: E731
+    event_ms = cuda_ms(reduce_, iters=50, warmup=5)
+    ms, kernels_seen = kernel_ms(reduce_, ["birrd_apply_kernel"])
+    plain_ms = queued_ms(lambda: birrd_plain(ref, x, mats, ports),
+                         iters=20, warmup=3)
+    library_ms = queued_ms(lambda: torch.matmul(P, x))
+    S = mats.shape[0]
+    nbytes = 2.0 * aw * d * x.element_size()
+    # the function's own work: one addition a wire and stage whose row of
+    # the routed program holds two entries (the others are copies)
+    adds = float((mats != 0).sum(dim=-1).gt(1).sum()) * d
+    bd = bound(nbytes, adds, FP32_PEAK_FLOPS)
+    dense_flops = 2.0 * S * aw * aw * d      # what the dense FMA loop does
+    rec = {"aw": aw, "d": d, "stages": S, "dtype": "f32",
+           "max_abs_err": err, "ms": ms, "event_ms": event_ms,
+           "queued_ms": queued_ms(reduce_), "device_kernels": kernels_seen,
+           "plain_ms": plain_ms, "plain_event_ms": cuda_ms(
+               lambda: birrd_plain(ref, x, mats, ports)),
+           "library_event_ms": cuda_ms(lambda: torch.matmul(P, x)),
+           "library_ms": library_ms, **bd,
+           "mbytes": nbytes / 1e6, "madds": adds / 1e6,
+           "dense_gflop": dense_flops / 1e9,
+           "dense_fp32_ms": dense_flops / FP32_PEAK_FLOPS * 1e3,
+           "dense_tflop_s": dense_flops / (ms * 1e-3) / 1e12,
+           "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9,
+           "ratio_to_bound": ms / bd["bound_ms"],
+           "cases": n, "dense_worst_ratio": dense_worst,
+           "launches_in_phase": bk.launch_count() - before}
+    log("[birrd] full size " + json.dumps(rec))
+    del x, y, plain, lib
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_coswitch(torch, rk, bk) -> dict:
+    """The co-switching demo's path on the card, every check asserted."""
+    from repro_torch.launch import coswitch
+    rk.reset_launch_count()
+    bk.reset_launch_count()                       # the demo's path starts
+    t0 = time.perf_counter()
+    rec = coswitch.run(DEV)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    rec.update({"seconds": secs, "rir_matmul_launches": rk.launch_count(),
+                "birrd_launches": bk.launch_count()})   # ... and ends here
+    log("[coswitch] " + json.dumps(rec))
+    if rec["birrd_launches"] < 1 or rec["rir_matmul_launches"] < 3 + 12:
+        raise AssertionError(f"coswitch: {rec['birrd_launches']} birrd_apply"
+                             f" and {rec['rir_matmul_launches']} rir_matmul "
+                             f"launches (want >= 1 and >= 15)")
+    return rec
+
+
+def phase_zamba_serve(torch, api, ops, ref, gk, lk, obs) -> dict:
+    """zamba2 served at full width: scan-in, greedy decode, batched ==
+    sequential tokens, ``gqa_decode`` at its decode shape timed, and in
+    bf16 every layer's ``linear_scan`` on a 1024-token forward against its
+    plain version on the same inputs (the kernel timed there)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import ssm
+    cfg = api.get_config(ZAMBA_ARCH, smoke=ZAMBA_SMOKE)
+    rng = np.random.default_rng(70)
+    reqs = [rng.integers(0, cfg.vocab, ZAMBA_PROMPT).astype(np.int32)
+            for _ in range(ZAMBA_BATCH)]
+    kw = dict(arch=ZAMBA_ARCH, smoke=ZAMBA_SMOKE, max_batch=ZAMBA_BATCH,
+              prompt_len=ZAMBA_PROMPT, gen=ZAMBA_GEN, seed=ZAMBA_SEED,
+              device=DEV)
+    t0 = time.perf_counter()
+    eng = api.ServeEngine(api.ServeConfig(workers=1, **kw))
+    model = eng.model.init(torch.Generator(device=DEV)
+                           .manual_seed(ZAMBA_SEED), scale=ZAMBA_SCALE)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.params().values())
+    steps = ZAMBA_PROMPT + ZAMBA_GEN - 1          # scan-in + decode steps
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
+           "scale": ZAMBA_SCALE, "init_s": init_s,
+           "requests": ZAMBA_BATCH, "batch": ZAMBA_BATCH,
+           "prompt_len": ZAMBA_PROMPT, "gen": ZAMBA_GEN,
+           "shared_invocations": model.n_invocations}
+    with eng:
+        eng.serve(reqs[:1])                        # warm the path
+        obs.reset()
+        obs.enable()
+        gk.reset_launch_count()                    # the hybrid path starts
+        lk.reset_launch_count()
+        t0 = time.perf_counter()
+        outs = eng.serve(reqs)
+        secs = time.perf_counter() - t0
+        launches = gk.launch_count()               # ... and ends here
+        scan_launches = lk.launch_count()
+        batches = int(obs.counter_value("serve.batches"))
+        prefill = obs.hist_stats("serve.prefill_ms")
+        decode = obs.hist_stats("serve.decode_ms_per_token")
+        obs.reset()                                # profile untraced
+        t_prof = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.serve(reqs)                        # one batch of 8
+            wall_s = time.perf_counter() - t0
+    by_name, busy_ms = device_time_by_kernel(prof)
+    profile_s = time.perf_counter() - t_prof
+    del prof
+    want = steps * model.n_invocations * batches
+    if launches != want or launches == 0:
+        raise AssertionError(f"zamba2 serve: {launches} gqa_decode launches "
+                             f"for {batches} batches (want {want})")
+    for o in outs:
+        if o.shape != (ZAMBA_GEN,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise AssertionError(f"zamba2 serve: bad tokens {o.shape}")
+    rec.update({"gqa_launches": launches, "batches": batches,
+                "gqa_launches_per_step": launches / (steps * batches),
+                "scan_launches": scan_launches, "seconds": secs,
+                "requests_per_s": ZAMBA_BATCH / secs,
+                "generated_tokens_per_s": ZAMBA_BATCH * ZAMBA_GEN / secs,
+                "prefill_ms": prefill,
+                "scan_in_ms_per_token": prefill["p50"] / ZAMBA_PROMPT,
+                "decode_ms_per_token": decode,
+                "profiled_batch_wall_ms": wall_s * 1e3,
+                "device_busy_ms": busy_ms,
+                "device_busy_share": busy_ms / (wall_s * 1e3),
+                "device_ops": sum(n for _, _, n in by_name),
+                "top_device_ms": [[name[:60], round(us / 1e3, 4), n]
+                                  for us, name, n in by_name[:12]],
+                "profile_s": profile_s})
+    log("[zamba] " + json.dumps(rec))
+    with api.ServeEngine(api.ServeConfig(workers=1, assemble_max=1, **kw),
+                         weights=model.params()) as seq:
+        seq_outs = seq.serve(reqs[:ZAMBA_SEQ_REQUESTS])
+    for i, (a, b) in enumerate(zip(outs, seq_outs)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"zamba2 request {i}: batched != "
+                                 f"sequential")
+    log(f"[zamba] {ZAMBA_SEQ_REQUESTS} requests served one a batch: tokens "
+        f"identical to the batched run")
+
+    # gqa_decode at zamba2's decode shape, timed over one cache an
+    # invocation (cold in L2, as a decode step finds them)
+    inv, S = model.n_invocations, ZAMBA_PROMPT + ZAMBA_GEN
+    gen = torch.Generator(device=DEV).manual_seed(71)
+    q = torch.randn(ZAMBA_BATCH, cfg.n_heads, cfg.head_dim, generator=gen,
+                    device=DEV).to(torch.bfloat16)
+    ks = [torch.randn(ZAMBA_BATCH, S, cfg.n_kv_heads, cfg.head_dim,
+                      generator=gen, device=DEV).to(torch.bfloat16)
+          for _ in range(inv)]
+    vs = [torch.randn_like(k_) for k_ in ks]
+    lens = torch.arange(ZAMBA_PROMPT, S, ZAMBA_GEN // ZAMBA_BATCH,
+                        device=DEV, dtype=torch.int32)
+    # device times as in phase 13: 2.9 MB of K/V takes the kernels less
+    # than the wrapper's host cost, which CUDA events around back-to-back
+    # calls measure instead (printed beside)
+    kern = cycling(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens), inv)
+    plain = cycling(lambda i: ref.gqa_decode(q, ks[i], vs[i], lens), inv)
+    g_ms, g_seen = kernel_ms(kern, ["gqa_split_kernel", "gqa_merge_kernel"],
+                             iters=4 * inv, warmup=inv)
+    rec["gqa_decode_shape"] = {
+        "B": ZAMBA_BATCH, "Hq": cfg.n_heads, "Hkv": cfg.n_kv_heads,
+        "D": cfg.head_dim, "S": S, "ms": g_ms,
+        "queued_ms": queued_ms(kern, iters=4 * inv, warmup=inv),
+        "event_ms": cuda_ms(kern, iters=4 * inv, warmup=inv),
+        "device_kernels": g_seen,
+        "plain_ms": queued_ms(plain, iters=2 * inv, warmup=2),
+        "plain_event_ms": cuda_ms(plain, iters=2 * inv, warmup=2),
+        **gqa_bound(ZAMBA_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                    int(lens.sum()))}
+    log("[zamba] gqa_decode at the decode shape "
+        + json.dumps(rec["gqa_decode_shape"]))
+    del ks, vs
+
+    # bf16 forward of a served sequence, extended to ZAMBA_SCAN_T tokens:
+    # each layer's scan held on its own inputs against the plain version
+    T = ZAMBA_SCAN_T
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (ZAMBA_BATCH, T))
+                            ).to(DEV)
+    toks[:, :ZAMBA_PROMPT] = torch.from_numpy(np.stack(reqs)).to(DEV)
+    toks[:, ZAMBA_PROMPT:S] = torch.from_numpy(np.stack(outs)).to(DEV)
+    real_scan = ssm.ops.linear_scan
+    seen = {"n": 0, "worst": 0.0, "first": None}
+
+    def held(q_, k_, v_, w_):
+        out = real_scan(q_, k_, v_, w_)
+        want = ref.linear_scan_chunked(q_, k_, v_, w_)
+        e, top = max_err(out, want), float(want.abs().max())
+        if out.shape != want.shape or not e <= SCAN_TOL["bf16"] * top:
+            raise AssertionError(
+                f"zamba2 layer {seen['n']} scan {tuple(out.shape)}: max "
+                f"|err| {e:.3e} beyond {SCAN_TOL['bf16']} x {top:.3e}")
+        seen["worst"] = max(seen["worst"], e / top)
+        if seen["first"] is None:
+            seen["first"] = (q_, k_, v_, w_, e)
+        seen["n"] += 1
+        return out
+
+    with torch.inference_mode():
+        before = lk.launch_count()
+        full = logits_with_scan(model, toks, held, slice(0, S))
+        launches_fwd = lk.launch_count() - before
+        effect = scan_effect(torch, model, toks, full, slice(0, S))
+    if launches_fwd != cfg.n_layers or seen["n"] != cfg.n_layers:
+        raise AssertionError(f"zamba2 hidden_states: {launches_fwd} "
+                             f"linear_scan launches for {cfg.n_layers} "
+                             f"layers")
+    q_, k_, v_, w_, err = seen.pop("first")
+    B_, H_, T_, dk = q_.shape
+    dv = v_.shape[-1]
+    ms = cuda_ms(lambda: ops.linear_scan(q_, k_, v_, w_), iters=10)
+    plain_ms = cuda_ms(lambda: ref.linear_scan_chunked(q_, k_, v_, w_),
+                       iters=3, warmup=1)
+    rec["bf16_scan_in_model"] = {
+        "positions": T, "layers": launches_fwd, "B": B_, "H": H_, "T": T_,
+        "dk": dk, "dv": dv, "scan_worst_ratio": seen["worst"],
+        "scan_limit": SCAN_TOL["bf16"], "layer0_max_abs_err": err,
+        "scan_effect_ratio": effect, "ms": ms, "plain_ms": plain_ms,
+        **scan_bound(q_, k_, v_, w_, v_)}       # out: v's shape and type
+    log("[zamba] bf16, the kernel on every layer's inputs "
+        + json.dumps(rec["bf16_scan_in_model"]))
+    if not effect >= SSM_MIN_SCAN_EFFECT:
+        raise AssertionError(f"zamba2 bf16: the scan moves the logits by "
+                             f"only {effect:.2e} of their max")
+    del eng, model, q_, k_, v_, w_, seen, full
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zamba_f32(torch, api, gk, lk) -> dict:
+    """zamba2-2.7b at full width in f32 (TF32 off): decode over every token
+    (the exact recurrence and ``gqa_decode``) against ``hidden_states``
+    (``linear_scan``, a ragged last chunk) + ``logits``; and the logits
+    with the scan's output zeroed, to show the comparison sees it."""
+    import gc
+
+    import numpy as np
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = ZAMBA_F32
+    cfg = dataclasses.replace(api.get_config(ZAMBA_ARCH, smoke=ZAMBA_SMOKE),
+                              dtype="float32")
+    model = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(72), scale=c["scale"])
+    toks = torch.from_numpy(np.random.default_rng(73).integers(
+        0, cfg.vocab, size=(c["batch"], c["seq"]))).to(DEV)
+    with torch.inference_mode():
+        cache = model.init_cache(c["batch"], c["seq"])
+        dec = []
+        before = gk.launch_count()
+        for t in range(c["seq"]):
+            cache, logits = model.decode_step(cache, toks[:, t])
+            dec.append(logits)
+        gqa = gk.launch_count() - before
+        dec = torch.stack(dec, dim=1)
+        before = lk.launch_count()
+        full = model.logits(model.hidden_states(toks))
+        launches = lk.launch_count() - before
+        effect = scan_effect(torch, model, toks, full)
+    scale = float(full.abs().max())
+    err = max_err(dec, full)
+    rec = {**c, "n_layers": cfg.n_layers, "max_abs_err": err,
+           "ref_max_abs": scale, "ratio": err / scale,
+           "limit": ZAMBA_F32_TOL, "scan_effect_ratio": effect,
+           "scan_launches": launches, "gqa_launches": gqa}
+    log("[zamba-f32] " + json.dumps(rec))
+    if launches != cfg.n_layers or gqa != c["seq"] * model.n_invocations:
+        raise AssertionError(f"zamba2 f32: {launches} linear_scan, {gqa} "
+                             f"gqa_decode launches")
+    if not err <= ZAMBA_F32_TOL * scale:
+        raise AssertionError(f"zamba2 f32 decode vs chunked: max |err| "
+                             f"{err:.3e} beyond {ZAMBA_F32_TOL} x "
+                             f"{scale:.3e}")
+    if not effect >= SSM_MIN_SCAN_EFFECT:
+        raise AssertionError(f"zamba2 f32: the scan moves the logits by "
+                             f"only {effect:.2e} of their max; the check "
+                             f"is blind")
+    del model, cache
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -1231,32 +1779,58 @@ def main(argv=None) -> int:
               "an NVIDIA card only", file=sys.stderr)
         return 1
     from repro_torch import api, obs
+    from repro_torch.kernels import birrd_reduce as bk
     from repro_torch.kernels import gqa_decode as gk
     from repro_torch.kernels import linear_scan as lk
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import rir_matmul as rk
 
     t_start = time.perf_counter()
-    record = {"build": phase_build(rk, gk, lk)}
-    cache, nets = phase_plan(api)
-    record["sweep_worst_f32_err"] = phase_kernel_sweep(torch, ops, ref)
-    record["resnet50_steps"] = phase_kernel_resnet(torch, api, ops, ref, nets)
-    record["networks"] = phase_networks(torch, api, rk, obs, nets)
-    record["serve"] = phase_serve(torch, api, rk, obs, cache, nets)
-    record["profile"] = phase_profile(torch, api, obs, cache, nets)
-    record["gqa_sweep"] = phase_gqa_sweep(torch, ops, ref)
-    record["gqa_llama"] = phase_gqa_llama(torch, api, ops, ref)
-    record["lm_serve"] = phase_lm_serve(torch, api, gk, obs)
-    record["lm_f32"] = phase_lm_f32(torch, api, gk)
-    record["scan_sweep"] = phase_scan_sweep(torch, ops, ref, lk)
-    record["train"] = phase_train(torch, api, lk, obs)
-    record["train_f32"] = phase_train_f32(torch, api, lk)
-    record["ssm_serve"] = phase_ssm_serve(torch, api, lk, obs)
-    record["ssm_f32"] = phase_ssm_f32(torch, api, lk)
+    phase_s = {}
+
+    def run(name, phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        phase_s[name] = time.perf_counter() - t0
+        log(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
+
+    record = {"build": run("build", phase_build, rk, gk, lk, bk)}
+    cache, nets = run("plan", phase_plan, api)
+    record["sweep_worst_f32_err"] = run("kernel_sweep", phase_kernel_sweep,
+                                        torch, ops, ref)
+    record["resnet50_steps"] = run("kernel_resnet", phase_kernel_resnet,
+                                   torch, api, ops, ref, nets)
+    record["networks"] = run("networks", phase_networks, torch, api, rk,
+                             obs, nets)
+    record["serve"] = run("serve", phase_serve, torch, api, rk, obs, cache,
+                          nets)
+    record["profile"] = run("profile", phase_profile, torch, api, obs,
+                            cache, nets)
+    record["gqa_sweep"] = run("gqa_sweep", phase_gqa_sweep, torch, ops, ref)
+    record["gqa_llama"] = run("gqa_llama", phase_gqa_llama, torch, api, ops,
+                              ref)
+    record["lm_serve"] = run("lm_serve", phase_lm_serve, torch, api, gk, obs)
+    record["lm_f32"] = run("lm_f32", phase_lm_f32, torch, api, gk)
+    record["scan_sweep"] = run("scan_sweep", phase_scan_sweep, torch, ops,
+                               ref, lk)
+    record["train"] = run("train", phase_train, torch, api, lk, obs)
+    record["train_f32"] = run("train_f32", phase_train_f32, torch, api, lk)
+    record["ssm_serve"] = run("ssm_serve", phase_ssm_serve, torch, api, lk,
+                              obs)
+    record["ssm_f32"] = run("ssm_f32", phase_ssm_f32, torch, api, lk)
+    record["birrd"] = run("birrd", phase_birrd, torch, ops, ref, bk)
+    record["coswitch"] = run("coswitch", phase_coswitch, torch, rk, bk)
+    record["zamba_serve"] = run("zamba_serve", phase_zamba_serve, torch,
+                                api, ops, ref, gk, lk, obs)
+    record["zamba_f32"] = run("zamba_f32", phase_zamba_f32, torch, api, gk,
+                              lk)
     record["seconds"] = time.perf_counter() - t_start
+    record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
     gq = record["gqa_llama"]
     sc = record["scan_sweep"]["train_shape"]
+    bd = record["birrd"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
@@ -1275,7 +1849,13 @@ def main(argv=None) -> int:
         "launches": record["train"]["scan_launches"],
         "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
-        "bound_by": sc["bound_by"], "library_ms": None}]}
+        "bound_by": sc["bound_by"], "library_ms": None}, {
+        "name": "birrd_apply", "route": "cuda", "source": BIRRD_SOURCE,
+        "replaces": BIRRD_REPLACES,
+        "launches": record["coswitch"]["birrd_launches"],
+        "max_abs_err": bd["max_abs_err"], "ms": bd["ms"],
+        "plain_ms": bd["plain_ms"], "bound_ms": bd["bound_ms"],
+        "bound_by": bd["bound_by"], "library_ms": bd["library_ms"]}]}
     record["kernels"] = kernels["kernels"]
     if args.out:
         path = pathlib.Path(args.out)

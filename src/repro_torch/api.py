@@ -3,9 +3,10 @@
 The counterpart of ``repro.api`` for what the port runs so far: planning,
 execution of planned networks through the hand-written ``rir_matmul``
 kernel, the dense LMs (their decode attention through the hand-written
-``gqa_decode`` kernel) and rwkv6 (its training scan through the
-hand-written ``linear_scan`` kernel), serving of both, and training on one
-device (AdamW, the WSD schedule, the synthetic data stream).  Entry points
+``gqa_decode`` kernel), rwkv6 and the zamba2 hybrid (their chunked scans
+through the hand-written ``linear_scan`` kernel), serving of all of them,
+and training on one device (AdamW, the WSD schedule, the synthetic data
+stream).  Entry points
 take ``device="cuda"`` by default and raise where CUDA is absent;
 ``device="cpu"`` runs the plain PyTorch path.
 The function wrappers take keyword-only arguments beyond their primary

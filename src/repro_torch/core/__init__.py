@@ -1,8 +1,9 @@
-"""FEATHER core cost model: dataflow/layout co-switching and Layoutloop.
+"""FEATHER core: dataflow/layout co-switching, BIRRD, RIR, Layoutloop.
 
-The numpy-only half of ``repro.core``; the BIRRD/RIR oracles come with the
-slice that ports the BIRRD kernel.
+The port of ``repro.core``: the numpy modules copied (the BIRRD switch
+model among them), the RIR oracle rewritten in torch.
 """
+from .birrd import Birrd, BirrdTopology, birrd_cost, fan_cost, art_cost
 from .conflicts import ConflictReport, assess_iact_conflicts, \
     assess_iact_conflicts_grid, concordant
 from .dataflow import PING_PONG, ConvWorkload, Dataflow, \
@@ -12,8 +13,10 @@ from .layoutloop import EvalConfig, LatticeMetrics, Metrics, SearchResult, \
     TileDramTerms, cosearch_layer, evaluate, evaluate_lattice, \
     exposed_stall_cycles, network_eval, tile_dram_terms
 from .nest import NestConfig, nest_cycles, nest_walkthrough, systolic_cycles
+from .rir import make_group_ids, rir_layout_write, rir_reduce_reorder
 
 __all__ = [
+    "Birrd", "BirrdTopology", "birrd_cost", "fan_cost", "art_cost",
     "ConflictReport", "assess_iact_conflicts", "assess_iact_conflicts_grid",
     "concordant",
     "PING_PONG", "ConvWorkload", "Dataflow", "enumerate_dataflows",
@@ -23,4 +26,5 @@ __all__ = [
     "TileDramTerms", "cosearch_layer", "evaluate", "evaluate_lattice",
     "exposed_stall_cycles", "network_eval", "tile_dram_terms",
     "NestConfig", "nest_cycles", "nest_walkthrough", "systolic_cycles",
+    "make_group_ids", "rir_layout_write", "rir_reduce_reorder",
 ]

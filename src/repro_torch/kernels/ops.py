@@ -4,6 +4,13 @@ A CPU tensor runs the plain PyTorch version (``ref``); a CUDA tensor
 launches the hand-written Hopper kernel, or raises.  There is no toggle and
 no fallback: nothing routes a CUDA tensor around its kernel.
 
+``birrd_reduce`` routes a grouped-reduction/reorder pattern through the
+BIRRD switch model once per pattern and device (memoized), then pushes
+``x`` through the compiled stage matrices: on the CPU the plain stage loop
+with the non-target ports zeroed, on the card one launch of the kernel
+with the port mask in its store.  The JAX wrappers' ``block_d`` grid hint
+and ``interpret`` flag have no counterpart: the kernel takes any ``d``.
+
 ``linear_scan`` is differentiable.  Its backward is not a kernel, because
 the JAX package has none: ``repro``'s ``custom_vjp`` recomputes through
 ``ref.linear_scan_chunked`` in XLA, and the port recomputes through its own
@@ -15,9 +22,12 @@ from __future__ import annotations
 import functools
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from . import ref
+from .birrd_reduce import (_out_port_mask, _routed_stage_mats,
+                           birrd_apply_cuda, compile_switch_program)
 from .gqa_decode import gqa_decode_cuda
 from .linear_scan import linear_scan_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
@@ -81,6 +91,45 @@ def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
     return rir_matmul_cuda(a, b, perm_t, residual=residual, block_n=block_n)
 
 
+def birrd_apply_p(x: torch.Tensor, stage_mats: torch.Tensor) -> torch.Tensor:
+    """Push ``x`` (aw, d) through a compiled BIRRD switch program
+    ``stage_mats`` (S, aw, aw) f32 on x's device: ``(aw, d)`` in x's
+    dtype."""
+    if x.device.type == "cpu":
+        return ref.birrd_apply(x, stage_mats)
+    if x.device.type != "cuda":
+        raise ValueError(f"birrd_apply runs on cpu or cuda, not {x.device}")
+    return birrd_apply_cuda(x, stage_mats)
+
+
+def birrd_apply(x: torch.Tensor, configs: Sequence[Sequence[int]]
+                ) -> torch.Tensor:
+    """Route ``x`` (aw, d) through BIRRD configured by ``configs`` (one
+    row of Egg configs a stage)."""
+    mats = compile_switch_program(x.shape[0], configs)
+    return birrd_apply_p(x, torch.from_numpy(np.array(mats)).to(x.device))
+
+
+def birrd_reduce(x: torch.Tensor, group_ids: Sequence[int],
+                 out_ports: Sequence[int]) -> torch.Tensor:
+    """Route + execute: grouped reduction with arbitrary output reorder.
+
+    x: (aw, d).  Returns (aw, d) with group sums at their target ports and
+    zeros elsewhere (junk/bubble ports are masked, as the output buffer's
+    write-enable does in hardware).
+    """
+    aw = x.shape[0]
+    ports = tuple(int(p) for p in out_ports)
+    mats = _routed_stage_mats(aw, tuple(int(g) for g in group_ids), ports,
+                              x.device)
+    mask = _out_port_mask(aw, ports, x.device)
+    if x.device.type == "cpu":
+        return ref.birrd_apply(x, mats, mask)
+    if x.device.type != "cuda":
+        raise ValueError(f"birrd_reduce runs on cpu or cuda, not {x.device}")
+    return birrd_apply_cuda(x, mats, port_mask=mask)
+
+
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                lengths: torch.Tensor) -> torch.Tensor:
     """Single-token GQA decode attention: ``(B, Hq, D)`` in q's dtype.
@@ -132,5 +181,5 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _LinearScan.apply(q, k, v, log_decay)
 
 
-__all__ = ["rir_matmul", "device_perm", "gqa_decode", "linear_scan",
-           "TILE_N"]
+__all__ = ["rir_matmul", "device_perm", "birrd_apply", "birrd_apply_p",
+           "birrd_reduce", "gqa_decode", "linear_scan", "TILE_N"]

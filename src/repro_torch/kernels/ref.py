@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.rir import rir_reduce_reorder
+
 
 # ----------------------------------------------------------------- rir_matmul
 def rir_matmul(a: torch.Tensor, b: torch.Tensor,
@@ -81,6 +83,28 @@ def depthwise_conv2d(x: torch.Tensor, w: torch.Tensor,
             tap = _taps(x, r, s, P, Q, stride)
             y = y + tap.float() * w[r, s].float()
     return y.to(x.dtype)
+
+
+# --------------------------------------------------------------- birrd_reduce
+def birrd_reduce(x: torch.Tensor, group_ids: torch.Tensor,
+                 out_ports: torch.Tensor, num_outputs: int) -> torch.Tensor:
+    """Grouped reduction + scatter: the RIR semantic spec over rows of x."""
+    return rir_reduce_reorder(x, group_ids, out_ports, num_outputs)
+
+
+def birrd_apply(x: torch.Tensor, stage_mats: torch.Tensor,
+                port_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` (aw, d) through stacked stage matrices (S, aw, aw): ``vals =
+    M_s @ vals`` in f32 stage after stage, then one cast to x's dtype (the
+    arithmetic of the Pallas ``birrd_apply_p`` and of the CUDA kernel);
+    rows where ``port_mask`` (aw,) bool is False are 0."""
+    vals = x.float()
+    for m in stage_mats:
+        vals = torch.matmul(m.float(), vals)
+    y = vals.to(x.dtype)
+    if port_mask is None:
+        return y
+    return torch.where(port_mask[:, None], y, torch.zeros_like(y))
 
 
 # ----------------------------------------------------------------- gqa_decode

@@ -1,8 +1,8 @@
-"""Model zoo factory: the dense decoder-only LMs and rwkv6 so far.
+"""Model zoo factory: the dense decoder-only LMs, the SSMs (rwkv6, mamba2)
+and the zamba2 hybrid so far.
 
 ``build_model`` raises ``NotImplementedError`` naming the ROADMAP item for a
-family the port does not run yet (MoE, hybrid, encoder-decoder, and the
-mamba2 mixer of the ssm family).
+family the port does not run yet (MoE, encoder-decoder).
 """
 from __future__ import annotations
 
@@ -10,16 +10,20 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
+from .hybrid import HybridModel
 from .lm import LMModel
 
 
 def build_model(cfg: ArchConfig, device: str | torch.device = "cuda"
                 ) -> LMModel:
     """The model for ``cfg`` with uninitialised parameters on ``device``
-    (``LMModel.init`` draws them, ``LMModel.load_params`` copies them in).
+    (``LMModel.init`` draws them, ``LMModel.load_params`` copies them in):
+    ``HybridModel`` for the hybrid family, ``LMModel`` otherwise.
     ``device="cuda"`` raises where there is no CUDA; ``"cpu"`` runs the
     plain PyTorch path."""
+    if cfg.family == "hybrid":
+        return HybridModel(cfg, device=device)
     return LMModel(cfg, device=device)
 
 
-__all__ = ["build_model", "LMModel"]
+__all__ = ["build_model", "LMModel", "HybridModel"]

@@ -1,17 +1,22 @@
-"""Decoder-only LM assembler for the dense and SSM (rwkv6) families.
+"""Decoder-only LM assembler for the dense, SSM (rwkv6, mamba2) and hybrid
+families.
 
 The port of ``repro.models.lm`` for ``family="dense"`` (and ``"vlm"``,
-which ``prefill`` lists) and ``family="ssm"`` with the RWKV6 mixer: the
-same parameter tree under the same leaf names (``embed``, ``final_norm``,
+which ``prefill`` lists) and ``family="ssm"`` with either mixer (a config
+named ``rwkv*`` takes RWKV6, any other Mamba2): the same parameter tree
+under the same leaf names (``embed``, ``final_norm``,
 ``layers.<i>.mixer``/``ffn``, ``lm_head`` when the head is untied), the same
-forward, loss, prefill and decode.  Where the JAX package stacks a leading
-layer axis and scans, the port keeps one ``ParamModule`` per layer in a
-``ModuleList`` and loops; ``jax.checkpoint`` of a layer (``remat``) becomes
-``torch.utils.checkpoint``.  Caches are preallocated on the model's device
-and ``decode_step`` updates them in place, so a decode step makes no host
-sync: ``{"layers": {"k", "v"}: (L, B, S, Hkv, dh), "length": (B,) int32}``
-for attention, ``{"layers": {"x_prev": (L, B, D), "state": (L, B, H, hd,
-hd) f32}, "length"}`` for rwkv6.  Parameters are built without gradients
+forward, loss, prefill and decode.  ``family="hybrid"`` (zamba2) is
+``HybridModel`` in ``hybrid.py``, built on this class.  Where the JAX
+package stacks a leading layer axis and scans, the port keeps one
+``ParamModule`` per layer in a ``ModuleList`` and loops; ``jax.checkpoint``
+of a layer (``remat``) becomes ``torch.utils.checkpoint``.  Caches are
+preallocated on the model's device and ``decode_step`` updates them in
+place, so a decode step makes no host sync: ``{"layers": {"k", "v"}: (L, B,
+S, Hkv, dh), "length": (B,) int32}`` for attention, ``{"layers":
+{"x_prev": (L, B, D), "state": (L, B, H, hd, hd) f32}, "length"}`` for
+rwkv6, ``{"layers": {"conv": (L, B, W-1, C), "ssm": (L, B, H, state, hd)
+f32}, "length"}`` for mamba2.  Parameters are built without gradients
 (serving); a trainer turns them on (``requires_grad_(True)``).
 """
 from __future__ import annotations
@@ -28,33 +33,36 @@ from repro_torch.device import resolve_device
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
                      dtype_of, mlp_apply, mlp_specs)
 from .common import ParamModule, Spec, SpecTree, apply_norm, dense, norm_spec
-from .ssm import rwkv6_cache_specs, rwkv6_decode, rwkv6_specs, rwkv6_train
+from .ssm import (mamba2_cache_specs, mamba2_decode, mamba2_specs,
+                  mamba2_train, rwkv6_cache_specs, rwkv6_decode, rwkv6_specs,
+                  rwkv6_train)
 
 #: families the port runs, and the ROADMAP item each other one waits for
-FAMILIES = ("dense", "vlm", "ssm")
+FAMILIES = ("dense", "vlm", "ssm", "hybrid")
 NOT_PORTED = {
     "moe": "ROADMAP.md Queue 1 item 6b (MoE: moe_specs/moe_apply)",
-    "hybrid": "ROADMAP.md Queue 1 item 7 (SSM and hybrid: mamba2 and the "
-              "shared attention block)",
     "encdec": "ROADMAP.md Queue 1 item 8 (encoder-decoder)",
 }
-MAMBA2 = "ROADMAP.md Queue 1 item 7 (SSM and hybrid: the mamba2 mixer)"
 
 
 def _is_rwkv(cfg: ArchConfig) -> bool:
     return cfg.family == "ssm" and cfg.name.startswith("rwkv")
 
 
+def _is_mamba2(cfg: ArchConfig) -> bool:
+    """The mixer of an ssm config not named ``rwkv*`` and of the hybrid
+    backbone (``repro.models.lm``'s rule)."""
+    return cfg.family == "hybrid" or (cfg.family == "ssm"
+                                      and not _is_rwkv(cfg))
+
+
 def check_family(cfg: ArchConfig) -> None:
     """Raise ``NotImplementedError`` naming the ROADMAP item for a family
-    (or, in the ssm family, a mixer) the port does not run yet."""
+    the port does not run yet."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet: "
             f"{NOT_PORTED.get(cfg.family, 'ROADMAP.md Queue 1')}")
-    if cfg.family == "ssm" and not _is_rwkv(cfg):
-        raise NotImplementedError(f"{cfg.name}: the ssm family runs rwkv6 "
-                                  f"only so far: {MAMBA2}")
 
 
 def flat_specs(tree: SpecTree, prefix: str = "") -> Iterator[Tuple[str, Spec]]:
@@ -68,39 +76,53 @@ def flat_specs(tree: SpecTree, prefix: str = "") -> Iterator[Tuple[str, Spec]]:
 
 def top_specs(cfg: ArchConfig) -> SpecTree:
     """The parameters outside the layers: embedding, final norm, the head
-    when it is not tied to the embedding."""
+    when it is not tied to the embedding (a hybrid always has its own, as
+    the JAX ``HybridModel`` does)."""
     dt = dtype_of(cfg)
     top = {"embed": ((cfg.vocab, cfg.d_model), dt),
            "final_norm": norm_spec(cfg.norm, cfg.d_model, dt)}
-    if not cfg.tie_embeddings:
+    if cfg.family == "hybrid" or not cfg.tie_embeddings:
         top["lm_head"] = ((cfg.d_model, cfg.vocab), dt)
     return top
 
 
 def layer_specs(cfg: ArchConfig) -> SpecTree:
     """One layer's parameters: the mixer, and the MLP (an SSM config
-    without ``d_ff`` has none)."""
-    if _is_rwkv(cfg):
-        out = {"mixer": rwkv6_specs(cfg)}
-        if cfg.d_ff:
+    without ``d_ff`` has none; a hybrid backbone layer has none)."""
+    if cfg.family in ("ssm", "hybrid"):
+        out = {"mixer": rwkv6_specs(cfg) if _is_rwkv(cfg)
+               else mamba2_specs(cfg)}
+        if cfg.family == "ssm" and cfg.d_ff:
             out["ffn"] = mlp_specs(cfg)
         return out
     return {"mixer": attn_specs(cfg), "ffn": mlp_specs(cfg)}
 
 
+def shared_specs(cfg: ArchConfig) -> SpecTree:
+    """The hybrid's one shared attention block: the ``2 D -> D`` projection
+    of concat(x, x_embed0), attention and an MLP."""
+    dt = dtype_of(cfg)
+    return {"concat_proj": ((2 * cfg.d_model, cfg.d_model), dt),
+            "attn": attn_specs(cfg), "ffn": mlp_specs(cfg)}
+
+
 def param_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     """Every parameter's (shape, dtype) under the names ``LMModel.params``
-    uses: ``embed``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ..."""
+    uses: ``embed``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ...; for a
+    hybrid, ``shared.attn.wq`` and the rest of the shared block too."""
     check_family(cfg)
     out = dict(flat_specs(top_specs(cfg)))
     layer = list(flat_specs(layer_specs(cfg)))
     for i in range(cfg.n_layers):
         out.update((f"layers.{i}.{n}", s) for n, s in layer)
+    if cfg.family == "hybrid":
+        out.update(flat_specs(shared_specs(cfg), "shared."))
     return out
 
 
 class LMModel(nn.Module):
-    """Uniform decoder-only stack: dense attention or RWKV6 mixers, MLPs."""
+    """Uniform decoder-only stack: dense attention, RWKV6 or Mamba2
+    mixers, MLPs."""
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         super().__init__()
@@ -159,6 +181,8 @@ class LMModel(nn.Module):
     def _mixer_train(self, p, x: torch.Tensor) -> torch.Tensor:
         if _is_rwkv(self.cfg):
             return rwkv6_train(self.cfg, p, x)
+        if _is_mamba2(self.cfg):
+            return mamba2_train(self.cfg, p, x)
         return attn_train(self.cfg, p, x)
 
     def _layer_train(self, x: torch.Tensor, layer: ParamModule
@@ -198,34 +222,41 @@ class LMModel(nn.Module):
         return chunked_ce_loss(self, self.hidden_states(inp), tgt)
 
     # ---------------------------------------------------------------- serving
-    def cache_specs(self, batch: int, max_seq: int) -> Dict[str, Spec]:
-        """The mixer caches with a leading layer axis (attention: K/V
-        ``(L, batch, max_seq, Hkv, dh)``; rwkv6: ``x_prev (L, batch, D)``,
-        ``state (L, batch, H, hd, hd)`` f32) and ``length`` (batch,)."""
+    def cache_specs(self, batch: int, max_seq: int) -> SpecTree:
+        """``layers``: the mixer caches with a leading layer axis
+        (attention: K/V ``(L, batch, max_seq, Hkv, dh)``; rwkv6: ``x_prev
+        (L, batch, D)``, ``state (L, batch, H, hd, hd)`` f32; mamba2:
+        ``conv (L, batch, W-1, C)``, ``ssm (L, batch, H, state, hd)``
+        f32); ``length`` (batch,)."""
         cfg = self.cfg
         if _is_rwkv(cfg):
             per_layer = rwkv6_cache_specs(cfg, batch)
+        elif _is_mamba2(cfg):
+            per_layer = mamba2_cache_specs(cfg, batch)
         else:
             kv = ((batch, max_seq, cfg.n_kv_heads, cfg.head_dim),
                   dtype_of(cfg))
             per_layer = {"k": kv, "v": kv}
-        out = {n: ((cfg.n_layers,) + shape, dt)
-               for n, (shape, dt) in per_layer.items()}
-        out["length"] = ((batch,), torch.int32)
-        return out
+        return {"layers": {n: ((cfg.n_layers,) + shape, dt)
+                           for n, (shape, dt) in per_layer.items()},
+                "length": ((batch,), torch.int32)}
 
     def init_cache(self, batch: int, max_seq: int) -> Dict:
-        z = {n: torch.zeros(shape, dtype=dt, device=self.device)
-             for n, (shape, dt) in self.cache_specs(batch, max_seq).items()}
-        length = z.pop("length")
-        return {"layers": z, "length": length}
+        """Zeros on the model's device, nested as ``cache_specs``."""
+        def zeros(tree: SpecTree) -> Dict:
+            return {n: zeros(s) if isinstance(s, dict) else torch.zeros(
+                s[0], dtype=s[1], device=self.device)
+                for n, s in tree.items()}
+
+        return zeros(self.cache_specs(batch, max_seq))
 
     def _mixer_decode(self, i: int, p, x: torch.Tensor, caches: Dict,
                       length: torch.Tensor) -> torch.Tensor:
         """Layer ``i``'s mixer for one token; writes its cache in place."""
-        if _is_rwkv(self.cfg):
-            delta, new = rwkv6_decode(self.cfg, p, x,
-                                      {n: c[i] for n, c in caches.items()})
+        if self.cfg.family in ("ssm", "hybrid"):
+            step = rwkv6_decode if _is_rwkv(self.cfg) else mamba2_decode
+            delta, new = step(self.cfg, p, x,
+                              {n: c[i] for n, c in caches.items()})
             for n, c in caches.items():
                 c[i].copy_(new[n])
             return delta
@@ -236,9 +267,9 @@ class LMModel(nn.Module):
     def decode_step(self, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[Dict, torch.Tensor]:
         """tokens: (B,) -> (cache, logits (B, V)).  Updates ``cache`` in
-        place (each layer's K/V at ``length``, or its rwkv6 ``x_prev`` and
-        state; then ``length + 1``) and returns it, where the JAX version
-        returns a new cache."""
+        place (each layer's K/V at ``length``, or its SSM states; then
+        ``length + 1``) and returns it, where the JAX version returns a new
+        cache."""
         cfg = self.cfg
         x = self._embed(tokens)
         length = cache["length"]
@@ -266,7 +297,7 @@ class LMModel(nn.Module):
         B, T = tokens.shape
         x = self._embed(tokens)
         cache = self.init_cache(B, max_seq)
-        if _is_rwkv(cfg):
+        if cfg.family == "ssm":
             for layer in self.layers:
                 x = self._layer_train(x, layer)
         else:

@@ -1,11 +1,14 @@
-"""SSM mixers: RWKV6 (Finch), train and decode paths.
+"""SSM mixers: Mamba2 (SSD) and RWKV6 (Finch), train and decode paths.
 
-The port of the RWKV6 half of ``repro.models.ssm``: the same parameter
-spec (``w0`` and ``u`` in f32, the rest in the model dtype), the same
-token-shift projections, the chunked train path through ``ops.linear_scan``
-(the CUDA kernel on the card) and the exact one-step recurrence for decode.
-The Mamba2 half (``mamba2_*``) comes with the hybrid slice (ROADMAP Queue 1
-item 7), since zamba2 is the config that needs it.
+The port of ``repro.models.ssm``: the same parameter specs (Mamba2's
+``A_log``, ``D_skip`` and ``dt_bias`` and RWKV6's ``w0`` and ``u`` in f32,
+the rest in the model dtype), the same projections, the chunked train path
+through ``ops.linear_scan`` (the CUDA kernel on the card) and the exact
+one-step recurrence for decode.  Both mixers reduce to the gated linear
+attention recurrence of the scan.  Mamba2 shares its ``B``/``C`` and decay
+across the heads; the JAX code broadcasts them to the scan's per-head
+operands, and so does the port, made contiguous, since the kernel takes
+contiguous operands (the log decay stays f32, as the kernel asks).
 """
 from __future__ import annotations
 
@@ -31,6 +34,110 @@ def _dims(cfg: ArchConfig) -> Tuple[int, int, int, int]:
     return di, state, heads, headdim
 
 
+# ---------------------------------------------------------------------- mamba2
+def mamba2_specs(cfg: ArchConfig) -> SpecTree:
+    D = cfg.d_model
+    di, state, heads, _ = _dims(cfg)
+    dt = dtype_of(cfg)
+    f32 = torch.float32
+    conv_ch = di + 2 * state
+    return {
+        "norm": norm_spec(cfg.norm, D, dt),
+        "in_proj": ((D, 2 * di + 2 * state + heads), dt),
+        "conv_w": ((cfg.conv_width, conv_ch), dt),
+        "conv_b": ((conv_ch,), dt),
+        "A_log": ((heads,), f32),
+        "D_skip": ((heads,), f32),
+        "dt_bias": ((heads,), f32),
+        "out_norm": norm_spec("rmsnorm", di, dt),
+        "out_proj": ((di, D), dt),
+    }
+
+
+def _mamba2_project(cfg: ArchConfig, p, x: torch.Tensor):
+    di, state, heads, _ = _dims(cfg)
+    h = apply_norm(cfg.norm, x, p["norm"])
+    zxbcdt = dense(h, p["in_proj"])
+    z = zxbcdt[..., :di]
+    xbc = zxbcdt[..., di:di + di + 2 * state]
+    dt_raw = zxbcdt[..., -heads:]
+    return z, xbc, dt_raw
+
+
+def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv over time.  xbc: (B, T, C); w: (W, C).  The
+    taps are summed in the JAX code's order, in xbc's type."""
+    W, T = w.shape[0], xbc.shape[1]
+    pad = F.pad(xbc, (0, 0, W - 1, 0))
+    out = torch.zeros_like(xbc)
+    for i in range(W):
+        out = out + pad[:, i:i + T, :] * w[i]
+    return F.silu(out + b)
+
+
+def mamba2_train(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D) residual delta, the chunked SSD scan
+    through ``ops.linear_scan``."""
+    B, T, D = x.shape
+    di, state, heads, headdim = _dims(cfg)
+    z, xbc, dt_raw = _mamba2_project(cfg, p, x)
+    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+    xs = xbc[..., :di].reshape(B, T, heads, headdim)
+    Bmat = xbc[..., di:di + state]                      # (B, T, state)
+    Cmat = xbc[..., di + state:]                        # (B, T, state)
+    dt = F.softplus(dt_raw.float() + p["dt_bias"])      # (B, T, heads)
+    A = -torch.exp(p["A_log"])                          # (heads,) negative
+    dt_h = dt.transpose(1, 2)[..., None]                # (B, heads, T, 1)
+    shape = (B, heads, T, state)
+    log_decay = (dt_h * A[None, :, None, None]).expand(shape).contiguous()
+    q = Cmat[:, None].expand(shape).to(x.dtype).contiguous()
+    k = (Bmat[:, None].expand(shape) * dt_h.to(x.dtype)).contiguous()
+    v = xs.transpose(1, 2).contiguous()                 # (B, heads, T, hd)
+    y = ops.linear_scan(q, k, v, log_decay)
+    y = y + v * p["D_skip"][None, :, None, None].to(x.dtype)
+    y = y.transpose(1, 2).reshape(B, T, di)
+    y = apply_norm("rmsnorm", y * F.silu(z), p["out_norm"])
+    return dense(y, p["out_proj"])
+
+
+def mamba2_cache_specs(cfg: ArchConfig, batch: int) -> SpecTree:
+    di, state, heads, headdim = _dims(cfg)
+    return {"conv": ((batch, cfg.conv_width - 1, di + 2 * state),
+                     dtype_of(cfg)),
+            "ssm": ((batch, heads, state, headdim), torch.float32)}
+
+
+def mamba2_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict
+                  ) -> Tuple[torch.Tensor, Dict]:
+    """One step.  x: (B, D); cache: {conv (B, W-1, C) in the model dtype,
+    ssm (B, H, state, hd) f32}.  Returns (residual delta (B, D), new
+    cache), as the JAX version does; the model writes the new cache into
+    its own in place."""
+    B, D = x.shape
+    di, state, heads, headdim = _dims(cfg)
+    z, xbc, dt_raw = _mamba2_project(cfg, p, x[:, None, :])
+    z, xbc, dt_raw = z[:, 0], xbc[:, 0], dt_raw[:, 0]
+    window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
+    conv = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"])
+                  + p["conv_b"])
+    xs = conv[..., :di].reshape(B, heads, headdim)
+    Bv = conv[..., di:di + state]
+    Cv = conv[..., di + state:]
+    dtv = F.softplus(dt_raw.float() + p["dt_bias"])    # (B, heads)
+    A = -torch.exp(p["A_log"])
+    decay = torch.exp(dtv * A)
+    h = cache["ssm"] * decay[..., None, None]
+    h = h + (Bv[:, None, :, None] * dtv[..., None, None]
+             * xs[:, :, None, :].float())
+    y = torch.einsum("bhsd,bs->bhd", h, Cv.float())
+    y = y.to(x.dtype) + xs * p["D_skip"][None, :, None].to(x.dtype)
+    y = y.reshape(B, di)
+    y = apply_norm("rmsnorm", y * F.silu(z), p["out_norm"])
+    return dense(y, p["out_proj"]), {"conv": window[:, 1:], "ssm": h}
+
+
+# ----------------------------------------------------------------------- rwkv6
 def rwkv6_specs(cfg: ArchConfig) -> SpecTree:
     D = cfg.d_model
     di, _, heads, headdim = _dims(cfg)

@@ -1,7 +1,8 @@
 """Plan-driven execution: run an ``ExecutionPlan`` through the RIR kernel.
 
-The PyTorch counterpart of ``repro.plan.executor``'s whole-network path.
-Every layer's output is written by the ``rir_matmul`` epilogue *directly in
+The PyTorch counterpart of ``repro.plan.executor``: GEMM chains
+(``execute_plan``) and whole networks (``execute_network``).  Every layer's
+output is written by the ``rir_matmul`` epilogue *directly in
 the layout the next layer wants* (RIR — the reorder rides the reduction), so
 no standalone relayout pass runs between layers:
 
@@ -18,6 +19,9 @@ no standalone relayout pass runs between layers:
   through canonical order and ``adapt_activation``.
 * Fused layer groups (``PlanStep.fused_with``) are fenced and measured as
   one unit; the math is left identical to the unfused schedule.
+* A GEMM chain pre-arranges each weight offline (``permute_weight_blocks``)
+  to contract against an activation stored in the incoming boundary
+  layout, so each step is one kernel launch.
 
 The numpy index builders are kept verbatim from the JAX package, so both
 backends use identical index maps.  Everything that depends only on
@@ -249,6 +253,174 @@ def _prepared_is_stale(prepared, plan: ExecutionPlan, block: int,
             or len(prepared.weights) != len(weights)
             or any(got is not want for got, want
                    in zip(prepared.weights, weights)))
+
+
+# =========================================================================
+# GEMM chains: one rir_matmul launch per plan step
+# =========================================================================
+def _tensor(x) -> torch.Tensor:
+    """``x`` as a tensor: tensors keep their dtype and device; anything else
+    is copied to a float32 CPU tensor (see ``_f32``)."""
+    return x if torch.is_tensor(x) else _f32(x)
+
+
+def _boundary_perms(plan: ExecutionPlan, x_dim: int, weights: Sequence,
+                    block: int) -> List[tuple]:
+    """GEMM-chain form: boundary widths come from the 2D weight shapes."""
+    return _derive_boundary_perms(
+        plan, [x_dim] + [int(np.shape(w)[1]) for w in weights], block)
+
+
+class PreparedPlan:
+    """Everything ``execute_plan`` derives from ``(plan, shapes, device)``.
+
+    Boundary perms, the pre-permuted (effective) weight matrices on
+    ``device`` and the perms as device tensors are computed once here;
+    calling the object runs only the per-batch matmul chain.  Reuse one
+    instance across ``execute_plan`` calls that share the plan and weights
+    (e.g. every serving batch).
+    """
+
+    def __init__(self, plan: ExecutionPlan, x_dim: int, weights: Sequence,
+                 *, block: int = RIR_BLOCK,
+                 device: str | torch.device = "cuda"):
+        self.device = resolve_device(device)
+        if len(weights) != len(plan.steps):
+            raise PlanError(
+                f"{len(weights)} weights for {len(plan.steps)} steps")
+        for i, w in enumerate(weights):
+            k_prev = x_dim if i == 0 else np.shape(weights[i - 1])[1]
+            if np.shape(w)[0] != k_prev:
+                raise PlanError(
+                    f"weight {i} K={np.shape(w)[0]} != producer M={k_prev}")
+        self.plan = plan
+        self.block = block
+        self.x_dim = x_dim
+        self.weights = tuple(weights)
+        for step in plan.steps:
+            if step.kernel != "rir_matmul":
+                raise PlanError(f"step {step.layer}: kernel "
+                                f"{step.kernel!r} is not one the port runs "
+                                f"(every step is an rir_matmul launch)")
+        self.perms = _boundary_perms(plan, x_dim, weights, block)
+        # every step is one kernel launch.  A boundary that is not whole
+        # blocks has one block (nothing to permute): its weight is padded to
+        # the kernel's tile and launched as one block that wide, as the
+        # network path does, and the output is cut back to its width
+        self.w_eff, self.block_n = [], []
+        for i, w in enumerate(weights):
+            w = _tensor(w).to(self.device)
+            if len(self.perms[i]) > 1:
+                w = permute_weight_blocks(w, self.perms[i], block)
+            if w.shape[1] % block:
+                w = _pad_cols(w, ops.TILE_N)
+                self.block_n.append(w.shape[1])
+            else:
+                self.block_n.append(block)
+            self.w_eff.append(w.contiguous())
+        self.widths = [int(np.shape(w)[1]) for w in weights]
+        self.perm_dev = [ops.device_perm(p, self.device) if len(p) > 1
+                         else None for p in self.perms]
+        self._prov: Optional[Dict[str, object]] = None
+
+    def _provenance(self) -> Dict[str, object]:
+        if self._prov is None:
+            self._prov = _plan_provenance(self.plan)
+        return self._prov
+
+    def __call__(self, x, *, activation: Activation = None) -> torch.Tensor:
+        plan, block, perms = self.plan, self.block, self.perms
+        # traced executions fence every step with a device sync and record
+        # the measured wall-clock next to the plan's modeled numbers; values
+        # are untouched, so outputs are bit-identical traced or not
+        traced = obs.enabled()
+        x = _tensor(x).to(self.device)
+        with obs.span("exec.chain",
+                      dict(self._provenance(), device=self.device.type,
+                           rows=int(x.shape[0])) if traced else None):
+            cur = apply_block_perm(x, perms[0], block) \
+                if len(perms[0]) > 1 else x
+            for i, (step, w_eff) in enumerate(zip(plan.steps, self.w_eff)):
+                faults.site(faults.EXEC_DISPATCH)
+                if traced:
+                    t0 = obs.now_us()
+                cur = ops.rir_matmul(cur.contiguous(), w_eff,
+                                     self.perm_dev[i + 1],
+                                     block_n=self.block_n[i])
+                if cur.shape[1] != self.widths[i]:
+                    cur = cur[:, :self.widths[i]]
+                if activation is not None and i < len(plan.steps) - 1:
+                    # elementwise: commutes with block perms
+                    cur = activation(cur)
+                if traced:
+                    if cur.is_cuda:
+                        torch.cuda.synchronize(cur.device)
+                    obs.record_span("exec.step", t0,
+                                    _step_attrs(self._provenance(), i, step))
+            out = invert_block_perm(cur, perms[-1], block) \
+                if len(perms[-1]) > 1 else cur
+        return out
+
+
+def prepare_plan(plan: ExecutionPlan, x_dim: int, weights: Sequence, *,
+                 block: int = RIR_BLOCK,
+                 device: str | torch.device = "cuda") -> PreparedPlan:
+    """Hoist boundary perms + effective weights out of the per-call path."""
+    return PreparedPlan(plan, x_dim, weights, block=block, device=device)
+
+
+def execute_plan(plan: ExecutionPlan, x, weights: Sequence, *,
+                 block: int = RIR_BLOCK, activation: Activation = None,
+                 prepared: Optional[PreparedPlan] = None,
+                 device: str | torch.device = "cuda") -> torch.Tensor:
+    """Execute a planned GEMM chain end-to-end; returns canonical output.
+
+    x: (tokens, K0); weights[i]: (K_i, M_i) with M_i == K_{i+1}.  Each step
+    is one ``ops.rir_matmul`` launch (the CUDA kernel on the card, its plain
+    version on the CPU) with the epilogue permutation derived from the
+    plan's consecutive boundary layouts; intermediate activations only ever
+    exist in their planned boundary layouts.  The JAX ``use_pallas`` switch
+    has no counterpart: the device decides.  A ``prepared`` ``PreparedPlan``
+    skips the per-call setup; it must come from THIS plan, these weights,
+    this block and this device (checked, so a stale one raises
+    ``PlanError`` instead of computing with old weights).
+    """
+    if prepared is None:
+        prepared = PreparedPlan(plan, int(np.shape(x)[-1]), weights,
+                                block=block, device=device)
+    elif _prepared_is_stale(prepared, plan, block, weights) \
+            or prepared.x_dim != np.shape(x)[-1] \
+            or prepared.device != resolve_device(device):
+        raise PlanError("prepared= was built from a different "
+                        "(plan, weights, block, device) than this call's "
+                        "arguments")
+    return prepared(x, activation=activation)
+
+
+def execute_plan_reference(plan: ExecutionPlan, x, weights: Sequence, *,
+                           block: int = RIR_BLOCK,
+                           activation: Activation = None,
+                           device: str | torch.device = "cuda"
+                           ) -> torch.Tensor:
+    """Same schedule through the ``kernels/ref.py`` plain versions — the
+    ground truth ``execute_plan`` is held against."""
+    dev = resolve_device(device)
+    perms = _boundary_perms(plan, int(np.shape(x)[-1]), weights, block)
+    x = _tensor(x).to(dev)
+    cur = apply_block_perm(x, perms[0], block) if len(perms[0]) > 1 else x
+    for i, (step, w) in enumerate(zip(plan.steps, weights)):
+        in_perm, out_perm = perms[i], perms[i + 1]
+        w = _tensor(w).to(dev)
+        w_eff = permute_weight_blocks(w, in_perm, block) \
+            if len(in_perm) > 1 else w
+        if len(out_perm) > 1:
+            cur = ref.rir_matmul(cur, w_eff, out_perm, block)
+        else:
+            cur = torch.matmul(cur.float(), w_eff.float()).to(cur.dtype)
+        if activation is not None and i < len(plan.steps) - 1:
+            cur = activation(cur)
+    return invert_block_perm(cur, perms[-1], block) \
+        if len(perms[-1]) > 1 else cur
 
 
 # =========================================================================

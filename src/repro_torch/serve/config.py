@@ -32,9 +32,9 @@ class ServeConfig:
     the model stack, every decode step's attention through the
     ``gqa_decode`` kernel on ``device``) or ``graph`` (planned-network
     serving: ``PreparedNetwork`` through the ``rir_matmul`` kernel) selects
-    the workload.  The port serves dense LMs and rwkv6 so far: an ``arch``
-    of another family raises ``NotImplementedError`` naming its ROADMAP
-    item.
+    the workload.  The port serves dense LMs, rwkv6 and the zamba2 hybrid
+    so far: an ``arch`` of another family raises ``NotImplementedError``
+    naming its ROADMAP item.
     ``max_batch`` is
     the batch extent the plan is built at — the ceiling for dynamic batch
     assembly; ``assemble_max`` caps how many queued requests one batch may

@@ -251,7 +251,7 @@ class _LMBackend:
         with torch.inference_mode():
             tokens = torch.from_numpy(prompts).to(self.device)
             t0 = time.perf_counter()
-            if self.cfg.family == "ssm":
+            if self.cfg.family in ("ssm", "hybrid"):
                 # scan the prompt in one token at a time, as the JAX engine
                 # does: the recurrent states come from stepping
                 cache = self.model.init_cache(B, self.max_seq)

@@ -75,7 +75,8 @@ def to_torch_lm_params(params: Mapping, cfg: ArchConfig,
 
     ``params`` is nested like ``repro.models.LMModel.param_specs()``
     (``embed``, ``final_norm``, ``layers`` with a leading layer axis on
-    every leaf, ``lm_head`` when the head is untied), its leaves numpy
+    every leaf, ``lm_head`` when the head is untied; a hybrid's ``shared``
+    block, which has no layer axis, is carried as it is), its leaves numpy
     arrays (bf16 ones included).  The result has one entry per layer
     (``layers.<i>.mixer.wq``, ...), in ``cfg``'s dtype, and goes to
     ``LMModel.load_params`` or ``ServeEngine(weights=...)``.  A missing or

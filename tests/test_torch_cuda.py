@@ -9,8 +9,11 @@ Each kernel is held against its plain PyTorch version on the same device:
 bf16, ``gqa_decode`` at the JAX sweep's 5e-4 / 3e-2 (softmax sums in
 another order, merged across splits), ``linear_scan`` at 1e-4 / 2e-2
 against the plain chunked version (the same algorithm, sums in another
-order) and at the JAX sweep's 3e-3 against the stepwise recurrence.  Served outputs, batched against the
-same requests one at a time, agree bit for bit.
+order) and at the JAX sweep's 3e-3 against the stepwise recurrence,
+``birrd_apply`` bit for bit on routed programs (every stage an exact copy
+or one f32 sum of two values) and at 1e-5 on dense stage matrices.  Served
+outputs, batched against the same requests one at a time, agree bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -106,6 +109,31 @@ def _gqa_inputs(b, hq, hkv, d, s, dtype, device, seed):
     lens = torch.randint(s // 2, s + 1, (b,), generator=gen,
                          dtype=torch.int32).to(device)
     return q, k, v, lens
+
+
+@pytest.mark.parametrize("widths", [(256, 384, 512, 256), (64, 128, 96)])
+def test_execute_plan_launches_every_step_on_card(cuda, widths):
+    """A GEMM chain on the card: one ``rir_matmul`` launch a step, a
+    boundary of whole blocks and a ragged one-block output (96 wide)
+    alike, against the same chain on the CPU."""
+    from repro_torch.core.dataflow import ConvWorkload
+    from repro_torch.core.layoutloop import EvalConfig
+    from repro_torch.plan import NetworkPlanner, execute_plan, from_layers
+    graph = from_layers([
+        ConvWorkload.from_gemm(M=m, N=128, K=k, name=f"l{i}")
+        for i, (k, m) in enumerate(zip(widths[:-1], widths[1:]))], "chain")
+    plan = NetworkPlanner(graph, EvalConfig()).plan()
+    rng = np.random.default_rng(len(widths))
+    x = rng.normal(size=(128, widths[0])).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(widths[:-1], widths[1:])]
+    before = rk.launch_count()
+    y = execute_plan(plan, x, ws, activation=torch.relu, device=cuda)
+    torch.cuda.synchronize()
+    assert rk.launch_count() == before + len(ws)
+    want = execute_plan(plan, x, ws, activation=torch.relu, device="cpu")
+    assert y.shape == (128, widths[-1])
+    torch.testing.assert_close(y.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.parametrize("b,hq,hkv,d,s", [
@@ -308,3 +336,112 @@ def test_rwkv6_loss_and_grads_on_card_match_cpu(cuda):
     for gd, gc in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(gd.cpu(), gc, rtol=0,
                                    atol=2e-4 * float(gc.abs().max()))
+
+
+# ---------------------------------------------------------------- birrd_apply
+def _routed(aw, gids, ports, device):
+    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    return _routed_stage_mats(aw, tuple(gids), tuple(ports),
+                              torch.device(device))
+
+
+BIRRD_PATTERNS = [
+    (8, [i // 2 for i in range(8)], [0, 2, 4, 6]),
+    (16, [i // 2 for i in range(16)], [2 * g for g in range(8)]),
+    (16, [i // 4 for i in range(16)], [0, 4, 8, 12]),
+    (4, [0, 0, 0, 0], [3]),
+    (2, [0, 1], [1, 0]),
+    (32, list(range(32)), [((i << 2) | (i >> 3)) & 31 for i in range(32)]),
+    (64, list(range(64)), [((i << 3) | (i >> 3)) & 63 for i in range(64)]),
+]
+
+
+@pytest.mark.parametrize("aw,gids,ports", BIRRD_PATTERNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [256, 77])
+def test_birrd_reduce_matches_plain_bitwise_on_card(cuda, aw, gids, ports,
+                                                    dtype, d):
+    """Routed programs: the kernel (one launch, the port mask in its store)
+    equals the plain stage loop bit for bit, any d, f32 and bf16."""
+    from repro_torch.kernels import birrd_reduce as bk
+    x = torch.randn(aw, d, generator=torch.Generator().manual_seed(aw + d)
+                    ).to(cuda, dtype)
+    before = bk.launch_count()
+    y = ops.birrd_reduce(x, gids, ports)
+    torch.cuda.synchronize()
+    assert bk.launch_count() == before + 1
+    assert y.dtype == dtype and y.shape == (aw, d)
+    mats = _routed(aw, gids, ports, cuda)
+    mask = torch.zeros(aw, dtype=torch.bool, device=cuda)
+    mask[list(ports)] = True
+    want = ref.birrd_apply(x, mats, mask)
+    assert torch.equal(y, want)
+    oracle = ref.birrd_reduce(x.float(), torch.tensor(gids),
+                              torch.tensor(ports), aw)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(y.float(), oracle, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("aw", [4, 8, 16, 32, 64])
+def test_birrd_apply_dense_stage_matrices_on_card(cuda, aw):
+    """Random dense stage matrices: the kernel's in-order fmaf sums against
+    the plain version's products (TF32 off) at 1e-5 of the output scale."""
+    gen = torch.Generator().manual_seed(aw)
+    S = 2 * aw.bit_length() - 2 if aw != 4 else 3
+    mats = (torch.randn(S, aw, aw, generator=gen) / aw ** 0.5).to(cuda)
+    x = torch.randn(aw, 1000, generator=gen).to(cuda)
+    y = ops.birrd_apply_p(x, mats)
+    want = ref.birrd_apply(x, mats)
+    torch.testing.assert_close(y, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+
+
+def test_birrd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import birrd_reduce as bk
+    x = torch.zeros(8, 128, device=cuda)
+    mats = torch.zeros(6, 8, 8, device=cuda)
+    with pytest.raises(ValueError, match="aw=12"):
+        bk.birrd_apply_cuda(torch.zeros(12, 128, device=cuda),
+                            torch.zeros(6, 12, 12, device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        bk.birrd_apply_cuda(x, mats[:, :4])
+    with pytest.raises(TypeError):
+        bk.birrd_apply_cuda(x.half(), mats)
+    with pytest.raises(TypeError, match="stage_mats"):
+        bk.birrd_apply_cuda(x, mats.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        bk.birrd_apply_cuda(torch.zeros(128, 8, device=cuda).t(), mats)
+    with pytest.raises(ValueError, match="operands on"):
+        bk.birrd_apply_cuda(x, mats.cpu())
+    with pytest.raises(ValueError, match="port_mask"):
+        bk.birrd_apply_cuda(x, mats, port_mask=torch.ones(8, device=cuda))
+
+
+def test_zamba2_decode_on_card_matches_cpu(cuda):
+    """SMOKE zamba2 (f32, TF32 off, parameters at 0.2 so that the scan
+    shapes the logits): ``hidden_states`` on the card (``linear_scan`` once
+    a layer) and a scan-in through ``decode_step`` (``gqa_decode`` once a
+    shared-block invocation) against the CPU, rtol/atol 2e-4."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import linear_scan as lk
+    from repro_torch.models import build_model
+    cfg = get_config("zamba2_2p7b", smoke=True)
+    cpu = build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0), scale=0.2)
+    dev = build_model(cfg, device=cuda).load_params(cpu.params())
+    toks = torch.randint(0, cfg.vocab, (2, 70),
+                         generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        before = lk.launch_count()
+        full = dev.logits(dev.hidden_states(toks.to(cuda)))
+        assert lk.launch_count() == before + cfg.n_layers
+        torch.testing.assert_close(full.cpu(), cpu.logits(
+            cpu.hidden_states(toks)), rtol=2e-4, atol=2e-4)
+        c_cpu, c_dev = cpu.init_cache(2, 70), dev.init_cache(2, 70)
+        before = gk.launch_count()
+        for t in range(70):
+            c_cpu, l_cpu = cpu.decode_step(c_cpu, toks[:, t])
+            c_dev, l_dev = dev.decode_step(c_dev, toks[:, t].to(cuda))
+            torch.testing.assert_close(l_dev.cpu(), l_cpu, rtol=2e-4,
+                                       atol=2e-4)
+        assert gk.launch_count() == before + 70 * dev.n_invocations

@@ -6,7 +6,9 @@ its JSON), one set of numpy weights and inputs from a seed: the port's
 ``execute_network(use_pallas=False)`` and ``repro``'s reference, at the JAX
 executor tests' tolerance (rtol 1e-4, atol 1e-3: fp32 GEMMs summed in other
 orders).  The JAX side runs under ``jax.jit``: the same ops as one XLA
-program, compiled once instead of dispatched one by one.
+program, compiled once instead of dispatched one by one.  GEMM chains
+(``execute_plan``/``execute_plan_reference``) are held to ``repro``'s the
+same way.
 """
 import dataclasses
 
@@ -24,12 +26,14 @@ from repro_torch.core.dataflow import ConvWorkload
 from repro_torch.core.layout import Layout
 from repro_torch.core.layoutloop import EvalConfig
 from repro_torch.core.workloads import init_graph_weights
+from repro_torch.plan import executor as executor_mod
 from repro_torch.plan import (NetworkPlanner, PlanError,
                               PlannerOptions, adapt_activation,
                               execute_network, execute_network_reference,
+                              execute_plan, execute_plan_reference,
                               fold_batchnorm, from_layers, layout_block_perm,
                               mobilenet_v3_graph, prepare_network,
-                              resnet50_graph)
+                              prepare_plan, resnet50_graph)
 from repro_torch.weights import to_torch_weights
 
 LAYOUTS = ("HWC_C32", "HWC_H32", "HWC_C4W8")
@@ -293,3 +297,152 @@ def test_traced_execution_spans_and_identical_outputs(res_plan):
     assert len(steps) == sum(s.fused_with is None for s in res_plan.steps)
     assert all(e["attrs"]["plan_id"] == res_plan.plan_id for e in steps)
     assert torch.equal(y_on, prepared(x))
+
+
+# ------------------------------------------------------------- GEMM chains
+def mlp3_graph():
+    """``examples/layout_coswitch.py``'s part 3 chain."""
+    return from_layers([
+        ConvWorkload.from_gemm(M=384, N=128, K=256, name="fc1"),
+        ConvWorkload.from_gemm(M=512, N=128, K=384, name="fc2"),
+        ConvWorkload.from_gemm(M=256, N=128, K=512, name="fc3"),
+    ], "mlp3")
+
+
+@pytest.fixture(scope="module")
+def mlp3_plan():
+    return make_plan(mlp3_graph())
+
+
+def _chain_inputs(dims, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(128, dims[0])).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(dims[:-1], dims[1:])]
+    return x, ws
+
+
+def _chain_three(plan, x, ws, relu):
+    """(port, repro XLA path, repro reference, port reference) as numpy."""
+    t_act = torch.relu if relu else None
+    j_act = (lambda t: jnp.maximum(t, 0)) if relu else None
+    jp = jplan.ExecutionPlan.from_json(plan.to_json())
+    jws = [jnp.asarray(w) for w in ws]
+    y = execute_plan(plan, x, ws, activation=t_act, device="cpu")
+    assert y.device.type == "cpu" and y.dtype == torch.float32
+    y_jax = jplan.execute_plan(jp, jnp.asarray(x), jws, activation=j_act,
+                               use_pallas=False)
+    y_ref = jplan.execute_plan_reference(jp, jnp.asarray(x), jws,
+                                         activation=j_act)
+    mine_ref = execute_plan_reference(plan, x, ws, activation=t_act,
+                                      device="cpu")
+    return y.numpy(), np.asarray(y_jax), np.asarray(y_ref), mine_ref.numpy()
+
+
+@pytest.mark.parametrize("names", [
+    None,                                            # as planned
+    ["HWC_C32", "HWC_H32", "HWC_C4W8", "HWC_H32"],   # every boundary permuted
+])
+@pytest.mark.parametrize("relu", [False, True])
+def test_execute_plan_matches_jax(mlp3_plan, names, relu):
+    plan = mlp3_plan if names is None else _force_boundaries(mlp3_plan,
+                                                             names)
+    x, ws = _chain_inputs([256, 384, 512, 256], seed=1)
+    y, y_jax, y_ref, mine_ref = _chain_three(plan, x, ws, relu)
+    assert y.shape == (128, 256)
+    for want in (y_jax, y_ref, mine_ref):
+        np.testing.assert_allclose(y, want, **TOL)
+    if names is not None:
+        perms = prepare_plan(plan, 256, ws, device="cpu").perms
+        assert any(p != tuple(range(len(p))) for p in perms)
+
+
+def test_execute_plan_one_block_chain_matches_jax(monkeypatch):
+    """Boundaries of one block: a 128-wide output runs the kernel with no
+    perm; a 96-wide one (not whole blocks) runs it too, padded to the
+    kernel's 128-wide tile multiple and cut back, where the JAX executor
+    leaves it to ``jnp.dot``.  Every step is one ``ops.rir_matmul`` call."""
+    graph = from_layers([
+        ConvWorkload.from_gemm(M=128, N=128, K=64, name="a"),
+        ConvWorkload.from_gemm(M=96, N=128, K=128, name="b"),
+    ], "narrow-chain")
+    plan = make_plan(graph)
+    x, ws = _chain_inputs([64, 128, 96], seed=2)
+    prepared = prepare_plan(plan, 64, ws, device="cpu")
+    assert prepared.perms == [(0,), (0,), (0,)]
+    assert prepared.block_n == [128, 128]
+    assert [tuple(w.shape) for w in prepared.w_eff] == [(64, 128), (128, 128)]
+    calls = []
+    real = executor_mod.ops.rir_matmul
+    monkeypatch.setattr(executor_mod.ops, "rir_matmul",
+                        lambda *a, **k: calls.append(k["block_n"])
+                        or real(*a, **k))
+    y, y_jax, y_ref, mine_ref = _chain_three(plan, x, ws, relu=True)
+    assert calls == [128, 128]
+    assert y.shape == (128, 96)
+    for want in (y_jax, y_ref, mine_ref):
+        np.testing.assert_allclose(y, want, **TOL)
+
+
+def test_execute_plan_rejects_a_step_kernel_it_does_not_run(mlp3_plan):
+    """``kernel='ref'`` is a value the plan format admits (the JAX executor
+    runs such a step as a plain product); the port runs every step through
+    ``rir_matmul``, so a plan asking for anything else raises."""
+    x, ws = _chain_inputs([256, 384, 512, 256], seed=3)
+    steps = list(mlp3_plan.steps)
+    steps[1] = dataclasses.replace(steps[1], kernel="ref")
+    plan = dataclasses.replace(mlp3_plan, steps=tuple(steps))
+    plan = type(plan).from_json(plan.to_json())
+    assert plan.steps[1].kernel == "ref"
+    with pytest.raises(PlanError, match="'ref'"):
+        execute_plan(plan, x, ws, device="cpu")
+    with pytest.raises(PlanError, match="'ref'"):
+        prepare_plan(plan, 256, ws, device="cpu")
+
+
+def test_execute_plan_prepared_reuse_and_staleness(mlp3_plan, monkeypatch):
+    """A prepared chain reused gives the same output; one built from other
+    weights, another plan, another width or device raises ``PlanError``;
+    the device defaults to cuda and raises without it."""
+    x, ws = _chain_inputs([256, 384, 512, 256], seed=3)
+    prepared = prepare_plan(mlp3_plan, 256, ws, device="cpu")
+    first = execute_plan(mlp3_plan, x, ws, prepared=prepared, device="cpu")
+    assert torch.equal(first, execute_plan(mlp3_plan, x, ws, device="cpu"))
+    other = [w.copy() for w in ws]
+    with pytest.raises(PlanError, match="different"):
+        execute_plan(mlp3_plan, x, other, prepared=prepared, device="cpu")
+    forced = _force_boundaries(mlp3_plan, ["HWC_H32"] * 4)
+    with pytest.raises(PlanError, match="different"):
+        execute_plan(forced, x, ws, prepared=prepared, device="cpu")
+    with pytest.raises(PlanError, match="weight 1"):
+        prepare_plan(mlp3_plan, 256, [ws[0], ws[2], ws[1]], device="cpu")
+    with pytest.raises(PlanError, match="2 weights"):
+        prepare_plan(mlp3_plan, 256, ws[:2], device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        execute_plan(mlp3_plan, x, ws, prepared=prepared)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        execute_plan_reference(mlp3_plan, x, ws)
+
+
+def test_coswitch_parts_run_on_the_cpu(capsys):
+    """``python -m repro_torch.launch.coswitch``'s kernel and chain parts
+    (2 and 3) on the CPU: every oracle check holds and prints True."""
+    from repro_torch.launch import coswitch
+    dev = torch.device("cpu")
+    p2 = coswitch.part2_rir_kernels(dev)
+    p3 = coswitch.part3_plan_execution(dev)
+    assert p2["rir_matmul_layout"] and p2["birrd_matches_oracle"]
+    assert p2["birrd_max_abs_err"] <= 1e-5
+    assert p3["steps"] == 3 and p3["chain_matches"]
+    out = capsys.readouterr().out
+    assert "False" not in out and out.count(": True") == 3
+
+
+def test_coswitch_runs_on_the_card_by_default(monkeypatch):
+    from repro_torch.launch import coswitch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coswitch.run()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        coswitch.main([])

@@ -1,9 +1,10 @@
 """The port's kernel layer on the CPU against the JAX package's.
 
-``repro_torch.kernels.ops.rir_matmul``, ``ops.gqa_decode`` and
-``ops.linear_scan`` on CPU tensors run their plain PyTorch versions; each
-is held against the JAX Pallas kernel (interpret mode on the CPU) and the
-JAX ``ref`` oracle over the ``test_kernels.py`` sweep, and the port's
+``repro_torch.kernels.ops.rir_matmul``, ``ops.gqa_decode``,
+``ops.linear_scan`` and the BIRRD ops on CPU tensors run their plain
+PyTorch versions; each is held against the JAX Pallas kernel (interpret
+mode on the CPU) and the JAX ``ref`` oracle over the ``test_kernels.py``
+sweep, and the port's
 conv/depthwise versions against the JAX ones.  The same inputs, made with
 numpy from a seed, go to both.  Tolerances are the JAX sweeps': 2e-4
 (``rir_matmul``) and 5e-4 (``gqa_decode``) for f32, sums in another order;
@@ -11,7 +12,10 @@ numpy from a seed, go to both.  Tolerances are the JAX sweeps': 2e-4
 frameworks).  ``linear_scan``: 1e-4 in f32 against the Pallas kernel (the
 same chunked algorithm), the JAX sweep's 3e-3 against the stepwise oracle,
 2e-2 for bf16 q/k/v; its gradient (recomputed through the chunked version
-on both sides) within 1e-4 of max |g|.
+on both sides) within 1e-4 of max |g|.  BIRRD: bit for bit against the
+Pallas ``birrd_apply_p`` on routed programs (each stage an exact copy or
+one f32 sum of two values), 1e-5 on dense stage matrices and against the
+RIR oracle (it sums a group in another order).
 """
 import re
 
@@ -317,3 +321,145 @@ def test_linear_scan_constants_mirror_the_source():
     for d in lk.HEAD_DIMS:
         assert f"case {d}: return launch_dims" in src
         assert f"case {d}: return launch_dv" in src
+
+
+# ---------------------------------------------------------------- birrd_reduce
+BIRRD_SWEEP = [(8, 128), (16, 256), (16, 512)]
+
+
+def _jax_birrd_apply_p(x, mats):
+    """The Pallas kernel in interpret mode."""
+    from repro.kernels.birrd_reduce import birrd_apply_p
+    return birrd_apply_p(x, jnp.asarray(mats), interpret=True)
+
+
+@pytest.mark.parametrize("aw,d", BIRRD_SWEEP)
+def test_birrd_reduce_matches_jax_kernel_bitwise(aw, d):
+    """``tests/test_kernels.py``'s sweep (aw/2 groups of 2 to the even
+    ports): the port's ``birrd_reduce`` equals the Pallas kernel bit for
+    bit (a routed program sums at most two values a stage, exactly as
+    either side does), and the RIR oracle of both packages at 1e-5."""
+    x = _np(np.random.default_rng(aw + d), (aw, d))
+    gids = [i // 2 for i in range(aw)]
+    ports = [2 * g for g in range(aw // 2)]
+    y = ops.birrd_reduce(torch.from_numpy(x), gids, ports)
+    assert y.dtype == torch.float32 and y.shape == (aw, d)
+    assert np.array_equal(y.numpy(), np.asarray(
+        jops.birrd_reduce(jnp.asarray(x), gids, ports)))
+    want = jref.birrd_reduce(jnp.asarray(x), jnp.asarray(gids, jnp.int32),
+                             jnp.asarray(ports, jnp.int32), aw)
+    assert_allclose(y.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    mine = ref.birrd_reduce(torch.from_numpy(x), torch.tensor(gids),
+                            torch.tensor(ports), aw)
+    assert_allclose(y.numpy(), mine.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_birrd_pure_reorder_matches_jax_bitwise():
+    rng = np.random.default_rng(21)
+    x = _np(rng, (8, 128))
+    perm = [int(p) for p in rng.permutation(8)]
+    y = ops.birrd_reduce(torch.from_numpy(x), list(range(8)), perm)
+    assert np.array_equal(y.numpy(), np.asarray(
+        jops.birrd_reduce(jnp.asarray(x), list(range(8)), perm)))
+    moved = np.zeros_like(x)
+    moved[perm] = x                     # a reorder moves values exactly
+    assert np.array_equal(y.numpy(), moved)
+
+
+@pytest.mark.parametrize("aw,gids,ports", [
+    (4, [0, 0, 0, 0], [2]),
+    (16, [0] * 4 + [1] * 4 + [2] * 4 + [3] * 4, [0, 4, 8, 12]),
+    (16, [0, 0, 0, 1, 1, 2, 2, 2] + [3] * 4 + [-1] * 4, [1, 5, 9, 13]),
+    (32, list(range(32)), [((i << 2) | (i >> 3)) & 31 for i in range(32)]),
+])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_birrd_apply_p_routed_programs_match_jax_bitwise(aw, gids, ports,
+                                                         dt):
+    """Routed stage matrices through ``ops.birrd_apply_p`` (unmasked)
+    against the Pallas ``birrd_apply_p`` in interpret mode: equal bit for
+    bit in f32 and in bf16 (f32 stages, one rounding on the way out)."""
+    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    mats = _routed_stage_mats(aw, tuple(gids), tuple(ports),
+                              torch.device("cpu"))
+    xt, xj = _both(_np(np.random.default_rng(aw), (aw, 256)), dt)
+    y = ops.birrd_apply_p(xt, mats)
+    assert y.dtype == TORCH_DT[dt] and y.shape == (aw, 256)
+    assert np.array_equal(_f32(y), _f32(_jax_birrd_apply_p(xj,
+                                                           mats.numpy())))
+
+
+@pytest.mark.parametrize("aw,S", [(4, 3), (8, 6), (16, 8)])
+def test_birrd_apply_p_dense_stage_matrices_match_jax(aw, S):
+    """Random dense stage matrices (no longer exact sums): the JAX sweep's
+    1e-5, relative to the output's scale."""
+    rng = np.random.default_rng(aw * S)
+    mats = (_np(rng, (S, aw, aw)) / np.float32(np.sqrt(aw)))
+    x = _np(rng, (aw, 384))
+    y = ops.birrd_apply_p(torch.from_numpy(x), torch.from_numpy(mats))
+    want = np.asarray(_jax_birrd_apply_p(jnp.asarray(x), mats))
+    assert_allclose(y.numpy(), want, rtol=1e-5,
+                    atol=1e-5 * np.abs(want).max())
+
+
+def test_birrd_apply_configs_match_jax():
+    """``ops.birrd_apply`` compiles a config program (memoized, numpy) and
+    runs it: the same as the JAX ``birrd_apply``."""
+    from repro.kernels.birrd_reduce import birrd_apply as jbirrd_apply
+    from repro_torch.kernels.birrd_reduce import _birrd
+    cfg = _birrd(8).route([0, 0, 1, 1, 2, 2, 3, 3], [6, 0, 2, 4])
+    x = _np(np.random.default_rng(22), (8, 128))
+    y = ops.birrd_apply(torch.from_numpy(x), cfg)
+    assert np.array_equal(y.numpy(), np.asarray(
+        jbirrd_apply(jnp.asarray(x), cfg, interpret=True)))
+
+
+def test_birrd_reduce_memoizes_routing_and_lowering():
+    """Repeat calls with the same (aw, group_ids, out_ports) on one device
+    hit the routing/compilation/upload cache instead of re-searching the
+    switch network; the port's counterpart of the JAX test."""
+    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    gids, ports = [i // 2 for i in range(8)], [2 * g for g in range(4)]
+    rng = np.random.default_rng(23)
+    y0 = ops.birrd_reduce(torch.from_numpy(_np(rng, (8, 128))), gids, ports)
+    before = _routed_stage_mats.cache_info()
+    x = _np(rng, (8, 128))
+    y1 = ops.birrd_reduce(torch.from_numpy(x), gids, ports)
+    after = _routed_stage_mats.cache_info()
+    assert after.hits == before.hits + 1
+    assert after.misses == before.misses
+    want = jref.birrd_reduce(jnp.asarray(x), jnp.asarray(gids, jnp.int32),
+                             jnp.asarray(ports, jnp.int32), 8)
+    assert_allclose(y1.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+    del y0
+
+
+def test_birrd_reduce_ragged_d_and_bad_pattern():
+    """Any d (the JAX wrapper asserts d % 128 == 0; the kernel masks its
+    ragged edge) against the oracle; a pattern the router refuses (two
+    groups on one port) raises before anything runs."""
+    x = _np(np.random.default_rng(24), (16, 77))
+    gids = [i // 4 for i in range(16)]
+    y = ops.birrd_reduce(torch.from_numpy(x), gids, [0, 4, 8, 12])
+    want = ref.birrd_reduce(torch.from_numpy(x), torch.tensor(gids),
+                            torch.tensor([0, 4, 8, 12]), 16)
+    assert_allclose(y.numpy(), want.numpy(), rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="distinct"):
+        ops.birrd_reduce(torch.from_numpy(x[:4]), [0, 1, 0, 1], [0, 0])
+
+
+def test_birrd_cuda_wrapper_checks_before_any_build():
+    from repro_torch.kernels import birrd_reduce as bk
+    x, mats = torch.zeros(8, 128), torch.zeros(6, 8, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        bk.birrd_apply_cuda(x, mats)
+    assert bk._lib is None
+    assert bk.library_path().parent == build.BUILD_DIR
+    assert bk.library_path().name.startswith("libbirrd_apply-")
+
+
+def test_birrd_widths_mirror_the_source():
+    from repro_torch.kernels import birrd_reduce as bk
+    src = bk.SOURCE.read_text()
+    for aw in bk.WIDTHS:
+        assert f"case {aw}: return launch_aw<T, {aw}>" in src
+    assert src.count("return launch_aw<") == len(bk.WIDTHS)
