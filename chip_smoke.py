@@ -265,34 +265,43 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5):
+def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5,
+              attempts: int = 3):
     """Device milliseconds of one call of ``fn()``, from the kernel events
     of a ``torch.profiler`` loop of ``iters`` calls: the mean duration of
     the events of each name in ``kernels`` (each launched once a call),
     summed.  The host's time to issue a call is left out.  The profiler
     may keep only some of a loop's events (37 of 50 in one run), so the
-    mean per event is taken, not the loop's sum over ``iters``.  Returns
-    the time and ``[name, device ms in all, events kept]`` a kernel."""
+    mean per event is taken, not the loop's sum over ``iters``; now and
+    then it keeps none of a kernel's, and the loop is profiled again, up
+    to ``attempts`` times.  Returns the time and ``[name, device ms in
+    all, events kept]`` a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    by_name, _ = device_time_by_kernel(prof)
-    ms, seen = 0.0, []
-    for kernel in kernels:
-        us = sum(u for u, name, _ in by_name if kernel in name)
-        n = sum(c for _, name, c in by_name if kernel in name)
-        if not n:
-            raise AssertionError(f"the profiler saw no {kernel} event")
-        ms += us / n / 1e3
-        seen.append([kernel, round(us / 1e3, 4), n])
-    return ms, seen
+    for attempt in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name, _ = device_time_by_kernel(prof)
+        ms, seen = 0.0, []
+        for kernel in kernels:
+            us = sum(u for u, name, _ in by_name if kernel in name)
+            n = sum(c for _, name, c in by_name if kernel in name)
+            if not n:
+                break
+            ms += us / n / 1e3
+            seen.append([kernel, round(us / 1e3, 4), n])
+        else:
+            return ms, seen
+        log(f"[profile] no {kernel} event kept (attempt {attempt + 1} of "
+            f"{attempts})")
+    raise AssertionError(f"the profiler saw no {kernel} event in "
+                         f"{attempts} attempts")
 
 
 def queued_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -386,6 +395,19 @@ def device_time_by_kernel(prof):
     return by_name, sum(us for us, _, _ in by_name) / 1e3
 
 
+def stack_frames(build_log: str) -> dict:
+    """``{kernel: bytes of stack frame}`` from ``nvcc -Xptxas -v``'s
+    report."""
+    frames, name = {}, None
+    for line in build_log.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for", 1)[1].strip()
+        elif name and "bytes stack frame" in line:
+            frames[name] = int(line.split("bytes stack frame")[0].split()[-1])
+            name = None
+    return frames
+
+
 # ------------------------------------------------------------------- phases
 def phase_build(rk, gk, lk, bk) -> dict:
     import torch
@@ -410,6 +432,15 @@ def phase_build(rk, gk, lk, bk) -> dict:
             elif "registers" in line or "spill" in line or "smem" in line:
                 log(f"[build] {line.strip()}")
     log(f"[build] all four libraries built and loaded in {secs:.1f} s")
+    if bk.build_log:
+        frames = stack_frames(bk.build_log)
+        switch = {k: v for k, v in frames.items() if bk.SWITCH_KERNEL in k}
+        if len(switch) != 2 * len(bk.WIDTHS) or any(switch.values()):
+            raise AssertionError(f"{bk.SWITCH_KERNEL}: want 0 bytes of stack "
+                                 f"frame in each of {2 * len(bk.WIDTHS)} "
+                                 f"instantiations, ptxas says {switch}")
+        log(f"[build] {bk.SWITCH_KERNEL}: 0 bytes stack frame in all "
+            f"{len(switch)} instantiations")
     return {"card": name, "build_s": secs,
             "nvcc_s": {"rir_matmul": rk.build_seconds,
                        "gqa_decode": gk.build_seconds,
@@ -483,15 +514,19 @@ def phase_kernel_sweep(torch, ops, ref) -> float:
     return worst
 
 
-def phase_kernel_resnet(torch, api, ops, ref, nets) -> dict:
-    """Each ResNet-50 plan step's GEMM at batch 8: checked and timed."""
+def phase_kernel_resnet(torch, api, ops, ref, rk, nets) -> dict:
+    """Each ResNet-50 plan step's GEMM at batch 8: checked and timed by
+    device time (the kernel's profiler events; the plain version and
+    ``torch.matmul`` queued behind a spin kernel), with the CUDA events
+    around back-to-back calls beside as ``event_ms``.  Then the split-K
+    shape's rows against the same rows inside the batch, bit for bit."""
     graph, plan = nets["resnet50"]
     weights = api.init_graph_weights(list(graph.layers), seed=0)
     prepared = api.prepare_network(plan, graph, weights, device=DEV)
     gen = torch.Generator(device="cpu").manual_seed(1)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                     "bound_ms": 0.0, "flop_ms": 0.0, "byte_ms": 0.0,
-                     "gflop": 0.0, "gbytes": 0.0}
+    rows, tot = [], {"ms": 0.0, "event_ms": 0.0, "plain_ms": 0.0,
+                     "library_ms": 0.0, "bound_ms": 0.0, "flop_ms": 0.0,
+                     "byte_ms": 0.0, "gflop": 0.0, "gbytes": 0.0}
     worst = 0.0
     for i, st in enumerate(prepared.steps):
         a = torch.randn(st.rows_out, st.k_width, generator=gen).to(DEV)
@@ -518,19 +553,24 @@ def phase_kernel_resnet(torch, api, ops, ref, nets) -> dict:
                         + len(perm))
         flop_ms = flops / FP32_PEAK_FLOPS * 1e3
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        call = lambda: ops.rir_matmul(  # noqa: E731
+            a, b, perm_t, residual=r, block_n=bn)
+        cut = rk.launch_plan(M, K, b.shape[1], bn)
+        ms, seen = kernel_ms(call, cut.kernels)
         row = {"step": i, "layer": st.wl.name, "M": M, "K": K, "N": N,
                "N_launched": b.shape[1], "block_n": bn, "residual": fused,
-               "kernel_ms": cuda_ms(lambda: ops.rir_matmul(
-                   a, b, perm_t, residual=r, block_n=bn)),
-               "plain_ms": cuda_ms(lambda: ref.rir_matmul(
-                   a, b, perm, bn, residual=r)),
-               "library_ms": cuda_ms(lambda: torch.matmul(a, b)),
+               "plan": vars(cut),
+               "kernel_ms": ms, "device_kernels": seen,
+               "event_ms": cuda_ms(call),
+               "plain_ms": queued_ms(lambda: ref.rir_matmul(
+                   a, b, perm, bn, residual=r), iters=20, warmup=3),
+               "library_ms": queued_ms(lambda: torch.matmul(a, b)),
                "bound_ms": max(flop_ms, byte_ms),
                "bound_by": "operations" if flop_ms >= byte_ms else "bytes",
                "max_abs_err": err}
         rows.append(row)
         log("[kernel] " + json.dumps(row))
-        for key in ("plain_ms", "library_ms", "bound_ms"):
+        for key in ("event_ms", "plain_ms", "library_ms", "bound_ms"):
             tot[key] += row[key]
         tot["ms"] += row["kernel_ms"]
         tot["flop_ms"] += flop_ms
@@ -540,12 +580,33 @@ def phase_kernel_resnet(torch, api, ops, ref, nets) -> dict:
     tot["max_abs_err"] = worst
     tot["bound_by"] = "operations" if tot["flop_ms"] >= tot["byte_ms"] \
         else "bytes"
+    tot["slower_than_library"] = [r["step"] for r in rows
+                                  if r["kernel_ms"] > r["library_ms"]]
     log(f"[kernel] resnet50 batch {BATCH}, {len(rows)} steps "
-        f"({tot['gflop']:.2f} GFLOP, {tot['gbytes']:.3f} GB): kernel "
-        f"{tot['ms']:.3f} ms, "
-        f"plain {tot['plain_ms']:.3f} ms, torch.matmul "
-        f"{tot['library_ms']:.3f} ms, bound {tot['bound_ms']:.3f} ms "
-        f"({tot['bound_by']})")
+        f"({tot['gflop']:.2f} GFLOP, {tot['gbytes']:.3f} GB), device time: "
+        f"kernel {tot['ms']:.4f} ms (events back to back "
+        f"{tot['event_ms']:.4f} ms), plain {tot['plain_ms']:.4f} ms, "
+        f"torch.matmul {tot['library_ms']:.4f} ms, bound "
+        f"{tot['bound_ms']:.4f} ms ({tot['bound_by']}); steps slower than "
+        f"torch.matmul: {tot['slower_than_library']}")
+    # the split-K shape (step 11's): a request's rows give the same bits
+    # alone as inside the batch
+    a = torch.randn(392, 4608, generator=gen).to(DEV)
+    b = torch.randn(4608, 512, generator=gen).to(DEV)
+    r = torch.randn(392, 512, generator=gen).to(DEV)
+    perm = (2, 0, 3, 1)
+    full = ops.rir_matmul(a, b, perm, residual=r)
+    for lo, hi in ((0, 7), (1, 8), (49, 98)):
+        part = ops.rir_matmul(a[lo:hi].contiguous(), b, perm,
+                              residual=r[lo:hi].contiguous())
+        if not torch.equal(full[lo:hi], part):
+            raise AssertionError(f"392x4608x512: rows {lo}-{hi - 1} alone "
+                                 f"differ from the same rows in the batch")
+    check_close("392x4608x512", full, ref.rir_matmul(a, b, perm, 128,
+                                                     residual=r),
+                TOL["f32"], TOL["f32"])
+    log("[kernel] 392x4608x512 (split-K shape): rows 0-6, 1-7 and 49-97 "
+        "alone == the same rows in the batch, bit for bit")
     return {"steps": rows, "total": tot}
 
 
@@ -1368,22 +1429,31 @@ def birrd_plain(ref, x, mats, ports):
 
 
 def birrd_case(torch, ops, ref, aw, gids, ports, d, dtype, seed) -> float:
-    """One routed pattern on the card: bit for bit against the plain stage
-    loop, within BIRRD_TOL (bf16: its rounding) of the RIR oracle; returns
-    max |err| against the plain version (0)."""
-    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    """One routed pattern on the card, through the switch kernel: bit for
+    bit against the plain stage loop and the plain switch walk, within
+    BIRRD_TOL (bf16: its rounding) of the RIR oracle; returns max |err|
+    against the plain version (0)."""
+    from repro_torch.kernels import birrd_reduce as bk
     x = torch.randn(aw, d, generator=torch.Generator().manual_seed(seed)
                     ).to(DEV, dtype)
+    before = bk.switch_launch_count()
     y = ops.birrd_reduce(x, gids, ports)
     torch.cuda.synchronize()
     name = f"birrd aw={aw} d={d} {dtype} groups={len(ports)}"
-    if y.dtype != dtype or y.shape != (aw, d):
-        raise AssertionError(f"{name}: {y.dtype} {tuple(y.shape)}")
-    mats = _routed_stage_mats(aw, tuple(gids), tuple(ports), x.device)
+    if y.dtype != dtype or y.shape != (aw, d) or \
+            bk.switch_launch_count() != before + 1:
+        raise AssertionError(f"{name}: {y.dtype} {tuple(y.shape)}, "
+                             f"{bk.switch_launch_count() - before} switch "
+                             f"kernel launches")
+    mats = bk._routed_stage_mats(aw, tuple(gids), tuple(ports), x.device)
     plain = birrd_plain(ref, x, mats, ports)
-    if not torch.equal(y, plain):
+    walk = ref.birrd_switch(x, bk._routed_configs(aw, tuple(gids),
+                                                  tuple(ports)),
+                            bk._out_port_mask(aw, tuple(ports), x.device))
+    if not torch.equal(y, plain) or not torch.equal(y, walk):
         raise AssertionError(f"{name}: not bit-identical to the plain "
-                             f"version (max |err| {max_err(y, plain):.3e})")
+                             f"versions (max |err| {max_err(y, plain):.3e}, "
+                             f"{max_err(y, walk):.3e})")
     oracle = ref.birrd_reduce(x.float(), torch.tensor(gids),
                               torch.tensor(ports), aw)
     tol = BIRRD_TOL if dtype == torch.float32 else TOL["bf16"]
@@ -1393,14 +1463,14 @@ def birrd_case(torch, ops, ref, aw, gids, ports, d, dtype, seed) -> float:
 
 def phase_birrd(torch, ops, ref, bk) -> dict:
     """``birrd_apply`` on the card: the JAX sweep's cases, every width, a
-    ragged d, bf16 and dense stage matrices; then the full-size case
+    ragged d and bf16 through the switch kernel, dense stage matrices
+    through the dense kernel; then the full-size case, both kernels
     timed."""
     import math
 
     import numpy as np
     from repro_torch.core.birrd import Birrd
-    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
-    before = bk.launch_count()
+    before = (bk.switch_launch_count(), bk.launch_count())
     n = 0
     worst = 0.0
     for aw, d in ((8, 128), (16, 256), (16, 512)):          # the JAX sweep
@@ -1443,8 +1513,12 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
         gen = torch.Generator().manual_seed(63 + aw)
         mats = (torch.randn(S, aw, aw, generator=gen) / aw ** 0.5).to(DEV)
         x = torch.randn(aw, 1000, generator=gen).to(DEV)
+        n_dense = bk.launch_count()
         y = ops.birrd_apply_p(x, mats)
         want = ref.birrd_apply(x, mats)
+        if bk.launch_count() != n_dense + 1:
+            raise AssertionError("birrd_apply_p did not launch the dense "
+                                 "kernel")
         scale = float(want.abs().max())
         err = max_err(y, want)
         if not err <= BIRRD_TOL * scale:
@@ -1452,22 +1526,24 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
                                  f" beyond {BIRRD_TOL} x {scale:.3e}")
         dense_worst = max(dense_worst, err / scale)
         n += 1
-    log(f"[birrd] sweep: {n} cases, widths {widths}; routed programs bit "
-        f"for bit against the plain version, within {BIRRD_TOL} of the RIR "
-        f"oracle; dense stage matrices worst |err| / max "
-        f"{dense_worst:.2e}")
+    log(f"[birrd] sweep: {n} cases, widths {widths}; routed programs "
+        f"through the switch kernel bit for bit against the plain versions, "
+        f"within {BIRRD_TOL} of the RIR oracle; dense stage matrices through "
+        f"the dense kernel, worst |err| / max {dense_worst:.2e}")
 
     # the full-size case, f32
     aw, d = BIRRD_FULL
     gids, ports = [i // 4 for i in range(aw)], [0, 4, 8, 12]
     x = torch.randn(aw, d, generator=torch.Generator().manual_seed(64)
                     ).to(DEV)
-    mats = _routed_stage_mats(aw, tuple(gids), tuple(ports), x.device)
+    mats = bk._routed_stage_mats(aw, tuple(gids), tuple(ports), x.device)
+    mask = bk._out_port_mask(aw, tuple(ports), x.device)
     y = ops.birrd_reduce(x, gids, ports)
     plain = birrd_plain(ref, x, mats, ports)
-    if not torch.equal(y, plain):
-        raise AssertionError("birrd full size: not bit-identical to the "
-                             "plain version")
+    dense = bk.birrd_apply_cuda(x, mats, port_mask=mask)
+    if not torch.equal(y, plain) or not torch.equal(dense, plain):
+        raise AssertionError("birrd full size: a kernel is not bit-identical "
+                             "to the plain version")
     err = max_err(y, plain)
     check_close("birrd full size vs the RIR oracle", y, ref.birrd_reduce(
         x, torch.tensor(gids), torch.tensor(ports), aw), BIRRD_TOL,
@@ -1484,12 +1560,15 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
     lib = torch.matmul(P, x)
     check_close("birrd full size: torch.matmul(P, x)", lib, plain,
                 BIRRD_TOL, BIRRD_TOL)
-    # device times: the kernel's from its profiler events, the plain
+    # device times: each kernel's from its profiler events, the plain
     # version's and the yardstick's with their launches queued; the CUDA
     # events around back-to-back calls are printed beside them
     reduce_ = lambda: ops.birrd_reduce(x, gids, ports)  # noqa: E731
+    dense_ = lambda: bk.birrd_apply_cuda(  # noqa: E731
+        x, mats, port_mask=mask)
     event_ms = cuda_ms(reduce_, iters=50, warmup=5)
-    ms, kernels_seen = kernel_ms(reduce_, ["birrd_apply_kernel"])
+    ms, kernels_seen = kernel_ms(reduce_, [bk.SWITCH_KERNEL])
+    dense_ms, dense_seen = kernel_ms(dense_, [bk.DENSE_KERNEL])
     plain_ms = queued_ms(lambda: birrd_plain(ref, x, mats, ports),
                          iters=20, warmup=3)
     library_ms = queued_ms(lambda: torch.matmul(P, x))
@@ -1503,6 +1582,8 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
     rec = {"aw": aw, "d": d, "stages": S, "dtype": "f32",
            "max_abs_err": err, "ms": ms, "event_ms": event_ms,
            "queued_ms": queued_ms(reduce_), "device_kernels": kernels_seen,
+           "dense_ms": dense_ms, "dense_event_ms": cuda_ms(dense_),
+           "dense_device_kernels": dense_seen,
            "plain_ms": plain_ms, "plain_event_ms": cuda_ms(
                lambda: birrd_plain(ref, x, mats, ports)),
            "library_event_ms": cuda_ms(lambda: torch.matmul(P, x)),
@@ -1510,13 +1591,16 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
            "mbytes": nbytes / 1e6, "madds": adds / 1e6,
            "dense_gflop": dense_flops / 1e9,
            "dense_fp32_ms": dense_flops / FP32_PEAK_FLOPS * 1e3,
-           "dense_tflop_s": dense_flops / (ms * 1e-3) / 1e12,
+           "dense_tflop_s": dense_flops / (dense_ms * 1e-3) / 1e12,
            "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9,
+           "dense_gb_s": nbytes / (dense_ms * 1e-3) / 1e9,
            "ratio_to_bound": ms / bd["bound_ms"],
+           "dense_ratio_to_bound": dense_ms / bd["bound_ms"],
            "cases": n, "dense_worst_ratio": dense_worst,
-           "launches_in_phase": bk.launch_count() - before}
+           "switch_launches_in_phase": bk.switch_launch_count() - before[0],
+           "dense_launches_in_phase": bk.launch_count() - before[1]}
     log("[birrd] full size " + json.dumps(rec))
-    del x, y, plain, lib
+    del x, y, plain, dense, lib
     torch.cuda.empty_cache()
     return rec
 
@@ -1531,11 +1615,13 @@ def phase_coswitch(torch, rk, bk) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     rec.update({"seconds": secs, "rir_matmul_launches": rk.launch_count(),
-                "birrd_launches": bk.launch_count()})   # ... and ends here
+                "birrd_launches": bk.switch_launch_count(),
+                "birrd_dense_launches": bk.launch_count()})  # ... and ends
     log("[coswitch] " + json.dumps(rec))
     if rec["birrd_launches"] < 1 or rec["rir_matmul_launches"] < 3 + 12:
-        raise AssertionError(f"coswitch: {rec['birrd_launches']} birrd_apply"
-                             f" and {rec['rir_matmul_launches']} rir_matmul "
+        raise AssertionError(f"coswitch: {rec['birrd_launches']} "
+                             f"{bk.SWITCH_KERNEL} and "
+                             f"{rec['rir_matmul_launches']} rir_matmul "
                              f"launches (want >= 1 and >= 15)")
     return rec
 
@@ -1800,7 +1886,7 @@ def main(argv=None) -> int:
     record["sweep_worst_f32_err"] = run("kernel_sweep", phase_kernel_sweep,
                                         torch, ops, ref)
     record["resnet50_steps"] = run("kernel_resnet", phase_kernel_resnet,
-                                   torch, api, ops, ref, nets)
+                                   torch, api, ops, ref, rk, nets)
     record["networks"] = run("networks", phase_networks, torch, api, rk,
                              obs, nets)
     record["serve"] = run("serve", phase_serve, torch, api, rk, obs, cache,
@@ -1836,6 +1922,7 @@ def main(argv=None) -> int:
         "replaces": REPLACES,
         "launches": record["serve"]["batched"]["launches"],
         "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
+        "event_ms": tot["event_ms"],
         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}, {
         "name": "gqa_decode", "route": "cuda", "source": GQA_SOURCE,
@@ -1854,6 +1941,7 @@ def main(argv=None) -> int:
         "replaces": BIRRD_REPLACES,
         "launches": record["coswitch"]["birrd_launches"],
         "max_abs_err": bd["max_abs_err"], "ms": bd["ms"],
+        "dense_ms": bd["dense_ms"],
         "plain_ms": bd["plain_ms"], "bound_ms": bd["bound_ms"],
         "bound_by": bd["bound_by"], "library_ms": bd["library_ms"]}]}
     record["kernels"] = kernels["kernels"]

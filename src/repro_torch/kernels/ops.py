@@ -6,10 +6,13 @@ no fallback: nothing routes a CUDA tensor around its kernel.
 
 ``birrd_reduce`` routes a grouped-reduction/reorder pattern through the
 BIRRD switch model once per pattern and device (memoized), then pushes
-``x`` through the compiled stage matrices: on the CPU the plain stage loop
-with the non-target ports zeroed, on the card one launch of the kernel
-with the port mask in its store.  The JAX wrappers' ``block_d`` grid hint
-and ``interpret`` flag have no counterpart: the kernel takes any ``d``.
+``x`` through the routed switch program: on the CPU the plain switch walk
+with the non-target ports zeroed, on the card one launch of the switch
+kernel with the port mask in its store.  ``birrd_apply`` runs a config
+program the same way; ``birrd_apply_p`` takes arbitrary stage matrices, as
+the JAX API does, and runs the dense kernel.  The JAX wrappers'
+``block_d`` grid hint and ``interpret`` flag have no counterpart: the
+kernels take any ``d``.
 
 ``linear_scan`` is differentiable.  Its backward is not a kernel, because
 the JAX package has none: ``repro``'s ``custom_vjp`` recomputes through
@@ -22,12 +25,11 @@ from __future__ import annotations
 import functools
 from typing import Optional, Sequence, Tuple, Union
 
-import numpy as np
 import torch
 
 from . import ref
-from .birrd_reduce import (_out_port_mask, _routed_stage_mats,
-                           birrd_apply_cuda, compile_switch_program)
+from .birrd_reduce import (_out_port_mask, _program_codes, _routed_program,
+                           birrd_apply_cuda, birrd_switch_cuda)
 from .gqa_decode import gqa_decode_cuda
 from .linear_scan import linear_scan_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
@@ -93,8 +95,8 @@ def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
 
 def birrd_apply_p(x: torch.Tensor, stage_mats: torch.Tensor) -> torch.Tensor:
     """Push ``x`` (aw, d) through a compiled BIRRD switch program
-    ``stage_mats`` (S, aw, aw) f32 on x's device: ``(aw, d)`` in x's
-    dtype."""
+    ``stage_mats`` (S, aw, aw) f32 on x's device, any matrices (the dense
+    kernel): ``(aw, d)`` in x's dtype."""
     if x.device.type == "cpu":
         return ref.birrd_apply(x, stage_mats)
     if x.device.type != "cuda":
@@ -105,9 +107,14 @@ def birrd_apply_p(x: torch.Tensor, stage_mats: torch.Tensor) -> torch.Tensor:
 def birrd_apply(x: torch.Tensor, configs: Sequence[Sequence[int]]
                 ) -> torch.Tensor:
     """Route ``x`` (aw, d) through BIRRD configured by ``configs`` (one
-    row of Egg configs a stage)."""
-    mats = compile_switch_program(x.shape[0], configs)
-    return birrd_apply_p(x, torch.from_numpy(np.array(mats)).to(x.device))
+    row of Egg configs a stage): the switch kernel on the card, its codes
+    uploaded once per program and device."""
+    cfg = tuple(tuple(int(c) for c in row) for row in configs)
+    if x.device.type == "cpu":
+        return ref.birrd_switch(x, cfg)
+    if x.device.type != "cuda":
+        raise ValueError(f"birrd_apply runs on cpu or cuda, not {x.device}")
+    return birrd_switch_cuda(x, _program_codes(x.shape[0], cfg, x.device))
 
 
 def birrd_reduce(x: torch.Tensor, group_ids: Sequence[int],
@@ -120,14 +127,14 @@ def birrd_reduce(x: torch.Tensor, group_ids: Sequence[int],
     """
     aw = x.shape[0]
     ports = tuple(int(p) for p in out_ports)
-    mats = _routed_stage_mats(aw, tuple(int(g) for g in group_ids), ports,
-                              x.device)
+    cfg, codes = _routed_program(aw, tuple(int(g) for g in group_ids), ports,
+                                 x.device)
     mask = _out_port_mask(aw, ports, x.device)
     if x.device.type == "cpu":
-        return ref.birrd_apply(x, mats, mask)
+        return ref.birrd_switch(x, cfg, mask)
     if x.device.type != "cuda":
         raise ValueError(f"birrd_reduce runs on cpu or cuda, not {x.device}")
-    return birrd_apply_cuda(x, mats, port_mask=mask)
+    return birrd_switch_cuda(x, codes, port_mask=mask)
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -14,6 +14,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.birrd import (ADD_LEFT, ADD_RIGHT, PASS, SWAP,
+                                    BirrdTopology)
 from repro_torch.core.rir import rir_reduce_reorder
 
 
@@ -96,12 +98,49 @@ def birrd_apply(x: torch.Tensor, stage_mats: torch.Tensor,
                 port_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``x`` (aw, d) through stacked stage matrices (S, aw, aw): ``vals =
     M_s @ vals`` in f32 stage after stage, then one cast to x's dtype (the
-    arithmetic of the Pallas ``birrd_apply_p`` and of the CUDA kernel);
-    rows where ``port_mask`` (aw,) bool is False are 0."""
+    arithmetic of the Pallas ``birrd_apply_p`` and of the dense CUDA
+    kernel); rows where ``port_mask`` (aw,) bool is False are 0."""
     vals = x.float()
     for m in stage_mats:
         vals = torch.matmul(m.float(), vals)
     y = vals.to(x.dtype)
+    if port_mask is None:
+        return y
+    return torch.where(port_mask[:, None], y, torch.zeros_like(y))
+
+
+def birrd_switch(x: torch.Tensor, configs: Sequence[Sequence[int]],
+                 port_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x`` (aw, d) through the BIRRD switches as ``Birrd.simulate`` walks
+    them, in f32: each stage's Egg configs (one a switch: PASS, SWAP,
+    ADD_LEFT, ADD_RIGHT), then the Alg. 1 wiring to the next stage; one
+    cast to x's dtype at the end (the arithmetic of the switch kernel).
+    Rows where ``port_mask`` (aw,) bool is False are 0."""
+    aw = x.shape[0]
+    topo = BirrdTopology(aw)
+    if len(configs) != topo.num_stages:
+        raise ValueError(f"aw={aw} has {topo.num_stages} stages, got "
+                         f"{len(configs)}")
+    vals = list(x.float().unbind(0))
+    for stage, row in enumerate(configs):
+        nxt = [None] * aw
+        for sw, cfg in enumerate(row):
+            left, right = vals[2 * sw], vals[2 * sw + 1]
+            cfg = int(cfg)
+            if cfg == PASS:
+                out = (left, right)
+            elif cfg == SWAP:
+                out = (right, left)
+            elif cfg == ADD_LEFT:
+                out = (left + right, right)
+            elif cfg == ADD_RIGHT:
+                out = (left, left + right)
+            else:
+                raise ValueError(f"bad config {cfg}")
+            nxt[topo.connection(stage, 2 * sw)] = out[0]
+            nxt[topo.connection(stage, 2 * sw + 1)] = out[1]
+        vals = nxt
+    y = torch.stack(vals).to(x.dtype)
     if port_mask is None:
         return y
     return torch.where(port_mask[:, None], y, torch.zeros_like(y))

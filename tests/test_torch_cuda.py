@@ -10,10 +10,12 @@ bf16, ``gqa_decode`` at the JAX sweep's 5e-4 / 3e-2 (softmax sums in
 another order, merged across splits), ``linear_scan`` at 1e-4 / 2e-2
 against the plain chunked version (the same algorithm, sums in another
 order) and at the JAX sweep's 3e-3 against the stepwise recurrence,
-``birrd_apply`` bit for bit on routed programs (every stage an exact copy
-or one f32 sum of two values) and at 1e-5 on dense stage matrices.  Served
+``birrd_apply``'s switch kernel bit for bit against the plain switch walk
+and stage loop on routed programs (every stage an exact copy or one f32 sum
+of two values), its dense kernel at 1e-5 on dense stage matrices.  Served
 outputs, batched against the same requests one at a time, agree bit for
-bit.
+bit, and so do ``rir_matmul``'s rows alone and in a batch at split-K
+shapes.
 """
 import numpy as np
 import pytest
@@ -69,6 +71,76 @@ def test_kernel_rows_do_not_depend_on_batch(cuda):
     assert torch.equal(full[:7], head)
 
 
+@pytest.mark.parametrize("m,k,n,bn", [
+    (1000, 147, 64, 64),       # conv1's K: A's rows unaligned (4-byte)
+    (1000, 64, 64, 64),        # K = 64: four slices, one split
+    (392, 4608, 512, 128),     # step 11: 8 K-splits
+    (1568, 2304, 256, 128),    # step 8
+    (300, 2304, 256, 64),      # 128-wide tiles over 64-wide blocks
+    (392, 120, 960, 960),      # MobileNet-V3's head: N 960, 64-wide tiles
+    (77, 1000, 128, 128),      # ragged M and K, K % 16 != 0, 2 splits
+])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_kernel_matches_plain_at_path_shapes_on_card(cuda, m, k, n, bn,
+                                                     dtype, tol):
+    """The shapes the network path gives the kernel, each cut as
+    ``launch_plan`` says, with a residual, against the plain version."""
+    gen = torch.Generator().manual_seed(m + k)
+    a = torch.randn(m, k, generator=gen).to(cuda, dtype)
+    b = torch.randn(k, n, generator=gen).to(cuda, dtype)
+    r = torch.randn(m, n, generator=gen).to(cuda, dtype)
+    perm = torch.randperm(n // bn, generator=gen).tolist()
+    y = ops.rir_matmul(a, b, perm, residual=r, block_n=bn)
+    want = ref.rir_matmul(a, b, perm, bn, residual=r)
+    torch.testing.assert_close(y.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("tile_n", [64, 128])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8])
+def test_every_cut_matches_plain_on_card(cuda, tile_n, splits):
+    """Every tile width and split count the kernel takes (a cut forced past
+    ``launch_plan``), with A's rows unaligned (K = 637: 4-byte copies) and
+    aligned: within 2e-4 of the plain version."""
+    gen = torch.Generator().manual_seed(tile_n + splits)
+    for k in (640, 637):
+        a = torch.randn(200, k, generator=gen).to(cuda)
+        b = torch.randn(k, 256, generator=gen).to(cuda)
+        perm = ops.device_perm((1, 0), cuda)
+        cut = rk.LaunchPlan(tile_n, splits, rk._k_bounds(k, splits))
+        y = rk._launch(a, b, perm, None, 128, cut)
+        want = ref.rir_matmul(a, b, (1, 0), 128)
+        torch.testing.assert_close(y, want, rtol=2e-4, atol=2e-4)
+
+
+def test_split_k_rows_do_not_depend_on_batch(cuda):
+    """At step 11's shape (K 4608: 8 K-splits, summed in split order) a
+    row's output is bit-identical whatever other rows share the call."""
+    gen = torch.Generator().manual_seed(6)
+    a = torch.randn(392, 4608, generator=gen).to(cuda)
+    b = torch.randn(4608, 512, generator=gen).to(cuda)
+    r = torch.randn(392, 512, generator=gen).to(cuda)
+    assert rk.launch_plan(392, 4608, 512, 128).splits == 8
+    full = ops.rir_matmul(a, b, (3, 1, 0, 2), residual=r)
+    for lo, hi in ((0, 7), (1, 8), (130, 390)):
+        head = ops.rir_matmul(a[lo:hi].contiguous(), b, (3, 1, 0, 2),
+                              residual=r[lo:hi].contiguous())
+        assert torch.equal(full[lo:hi], head)
+
+
+def test_unaligned_a_runs_on_card(cuda):
+    """A contiguous view of A that does not start on a 16-byte boundary
+    runs (its rows go in by 4-byte copies) and matches."""
+    gen = torch.Generator().manual_seed(8)
+    base = torch.randn(101 * 64 + 1, generator=gen).to(cuda)
+    a = base[1:].view(101, 64)
+    assert a.data_ptr() % 16
+    b = torch.randn(64, 128, generator=gen).to(cuda)
+    torch.testing.assert_close(ops.rir_matmul(a, b, None),
+                               ref.rir_matmul(a, b, (0,), 128),
+                               rtol=2e-4, atol=2e-4)
+
+
 def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     a = torch.zeros(8, 16, device=cuda)
     with pytest.raises(ValueError, match="multiple"):
@@ -82,6 +154,21 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     bad = torch.tensor([0, 5], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="device_perm"):
         ops.rir_matmul(a, torch.zeros(16, 256, device=cuda), bad)
+    # b and the residual are read 16 bytes at a time
+    b = torch.zeros(16 * 128 + 1, device=cuda)[1:].view(16, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rir_matmul(a, b)
+    r = torch.zeros(8 * 128 + 1, device=cuda)[1:].view(8, 128)
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.rir_matmul(a, torch.zeros(16, 128, device=cuda), residual=r)
+    # a cut the kernel does not take is refused by the launcher
+    perm = ops.device_perm((0,), cuda)
+    for cut in (rk.LaunchPlan(128, 3, (0, 16, 32, 48)),
+                rk.LaunchPlan(96, 1, (0, 16)),
+                rk.LaunchPlan(64, 8, rk._k_bounds(16, 8))):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rk._launch(a, torch.zeros(16, 128, device=cuda), perm, None, 128,
+                       cut)
 
 
 def test_served_batches_equal_sequential_on_card(cuda):
@@ -361,21 +448,24 @@ BIRRD_PATTERNS = [
 @pytest.mark.parametrize("d", [256, 77])
 def test_birrd_reduce_matches_plain_bitwise_on_card(cuda, aw, gids, ports,
                                                     dtype, d):
-    """Routed programs: the kernel (one launch, the port mask in its store)
-    equals the plain stage loop bit for bit, any d, f32 and bf16."""
+    """Routed programs: the switch kernel (one launch, the port mask in its
+    store) equals the plain stage loop and the plain switch walk bit for
+    bit, any d, f32 and bf16."""
     from repro_torch.kernels import birrd_reduce as bk
     x = torch.randn(aw, d, generator=torch.Generator().manual_seed(aw + d)
                     ).to(cuda, dtype)
-    before = bk.launch_count()
+    before = bk.switch_launch_count()
     y = ops.birrd_reduce(x, gids, ports)
     torch.cuda.synchronize()
-    assert bk.launch_count() == before + 1
+    assert bk.switch_launch_count() == before + 1
     assert y.dtype == dtype and y.shape == (aw, d)
     mats = _routed(aw, gids, ports, cuda)
     mask = torch.zeros(aw, dtype=torch.bool, device=cuda)
     mask[list(ports)] = True
     want = ref.birrd_apply(x, mats, mask)
     assert torch.equal(y, want)
+    cfg = bk._routed_configs(aw, tuple(gids), tuple(ports))
+    assert torch.equal(y, ref.birrd_switch(x, cfg, mask))
     oracle = ref.birrd_reduce(x.float(), torch.tensor(gids),
                               torch.tensor(ports), aw)
     tol = 1e-5 if dtype == torch.float32 else 2e-2
@@ -394,6 +484,49 @@ def test_birrd_apply_dense_stage_matrices_on_card(cuda, aw):
     want = ref.birrd_apply(x, mats)
     torch.testing.assert_close(y, want, rtol=1e-5,
                                atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("aw,gids,ports", BIRRD_PATTERNS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [4096, 1001, 3])
+def test_birrd_switch_kernel_matches_plain_bitwise_on_card(cuda, aw, gids,
+                                                           ports, dtype, d):
+    """``ops.birrd_apply`` on a routed config program runs the switch
+    kernel, unmasked: bit for bit ``ref.birrd_switch``, at a d its vector
+    loads tile, a ragged one and one below a thread's columns."""
+    from repro_torch.kernels import birrd_reduce as bk
+    cfg = bk._routed_configs(aw, tuple(gids), tuple(ports))
+    x = torch.randn(aw, d, generator=torch.Generator().manual_seed(d + aw)
+                    ).to(cuda, dtype)
+    before = (bk.launch_count(), bk.switch_launch_count())
+    y = ops.birrd_apply(x, cfg)
+    torch.cuda.synchronize()
+    assert (bk.launch_count(), bk.switch_launch_count()) == \
+        (before[0], before[1] + 1)
+    assert torch.equal(y, ref.birrd_switch(x, cfg))
+    assert torch.equal(y, ref.birrd_apply(x, _routed(aw, gids, ports, cuda)))
+
+
+def test_birrd_switch_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels import birrd_reduce as bk
+    x = torch.zeros(8, 128, device=cuda)
+    codes = torch.zeros(6, 4, dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="aw=12"):
+        bk.birrd_switch_cuda(torch.zeros(12, 128, device=cuda),
+                             torch.zeros(6, 6, dtype=torch.uint8,
+                                         device=cuda))
+    with pytest.raises(ValueError, match="shapes"):
+        bk.birrd_switch_cuda(x, codes[:, :3])
+    with pytest.raises(ValueError, match="stages"):
+        bk.birrd_switch_cuda(x, codes[:5])
+    with pytest.raises(TypeError, match="uint8"):
+        bk.birrd_switch_cuda(x, codes.int())
+    with pytest.raises(TypeError):
+        bk.birrd_switch_cuda(x.half(), codes)
+    with pytest.raises(ValueError, match="operands on"):
+        bk.birrd_switch_cuda(x, codes.cpu())
+    with pytest.raises(ValueError, match="port_mask"):
+        bk.birrd_switch_cuda(x, codes, port_mask=torch.ones(8, device=cuda))
 
 
 def test_birrd_wrapper_rejects_what_the_kernel_does_not_take(cuda):

@@ -14,8 +14,11 @@ same chunked algorithm), the JAX sweep's 3e-3 against the stepwise oracle,
 2e-2 for bf16 q/k/v; its gradient (recomputed through the chunked version
 on both sides) within 1e-4 of max |g|.  BIRRD: bit for bit against the
 Pallas ``birrd_apply_p`` on routed programs (each stage an exact copy or
-one f32 sum of two values), 1e-5 on dense stage matrices and against the
-RIR oracle (it sums a group in another order).
+one f32 sum of two values), whether the program runs as switches
+(``ref.birrd_switch``) or as stage matrices; 1e-5 on dense stage matrices
+and against the RIR oracle (it sums a group in another order).
+``rir_matmul.launch_plan``, the kernel's cut of a GEMM, is pinned: its
+K-splits and their K ranges never depend on M.
 """
 import re
 
@@ -415,16 +418,16 @@ def test_birrd_apply_configs_match_jax():
 
 def test_birrd_reduce_memoizes_routing_and_lowering():
     """Repeat calls with the same (aw, group_ids, out_ports) on one device
-    hit the routing/compilation/upload cache instead of re-searching the
+    hit the routing/encoding/upload cache instead of re-searching the
     switch network; the port's counterpart of the JAX test."""
-    from repro_torch.kernels.birrd_reduce import _routed_stage_mats
+    from repro_torch.kernels.birrd_reduce import _routed_program
     gids, ports = [i // 2 for i in range(8)], [2 * g for g in range(4)]
     rng = np.random.default_rng(23)
     y0 = ops.birrd_reduce(torch.from_numpy(_np(rng, (8, 128))), gids, ports)
-    before = _routed_stage_mats.cache_info()
+    before = _routed_program.cache_info()
     x = _np(rng, (8, 128))
     y1 = ops.birrd_reduce(torch.from_numpy(x), gids, ports)
-    after = _routed_stage_mats.cache_info()
+    after = _routed_program.cache_info()
     assert after.hits == before.hits + 1
     assert after.misses == before.misses
     want = jref.birrd_reduce(jnp.asarray(x), jnp.asarray(gids, jnp.int32),
@@ -458,8 +461,136 @@ def test_birrd_cuda_wrapper_checks_before_any_build():
 
 
 def test_birrd_widths_mirror_the_source():
+    """Both kernels are instantiated for every width the wrapper takes, and
+    the switch kernel numbers the Egg configs as the switch model does."""
+    from repro_torch.core import birrd
     from repro_torch.kernels import birrd_reduce as bk
     src = bk.SOURCE.read_text()
     for aw in bk.WIDTHS:
         assert f"case {aw}: return launch_aw<T, {aw}>" in src
+        assert f"case {aw}: return launch_switch_aw<T, {aw}>" in src
     assert src.count("return launch_aw<") == len(bk.WIDTHS)
+    assert src.count("return launch_switch_aw<") == len(bk.WIDTHS)
+    assert (f"kSwap = {birrd.SWAP}, kAddLeft = {birrd.ADD_LEFT}, "
+            f"kAddRight = {birrd.ADD_RIGHT}") in src
+    assert birrd.PASS == 0         # a code the kernel does not name passes
+    for kernel in (bk.SWITCH_KERNEL, bk.DENSE_KERNEL):
+        assert f"__global__ void __launch_bounds__(kThreads)\n{kernel}(" \
+            in src
+
+
+# routed programs at every width: a swap, a full reduction (aw 4's three
+# stages), pairs to scattered ports, the demo's groups of 4, and structured
+# relayouts routed in closed form
+BIRRD_ROUTED = [
+    (2, [0, 1], [1, 0]),
+    (4, [0, 0, 0, 0], [3]),
+    (8, [0, 0, 1, 1, 2, 2, 3, 3], [6, 0, 2, 4]),
+    (16, [i // 4 for i in range(16)], [0, 4, 8, 12]),
+    (32, list(range(32)), [((i << 2) | (i >> 3)) & 31 for i in range(32)]),
+    (64, list(range(64)), [((i << 3) | (i >> 3)) & 63 for i in range(64)]),
+]
+
+
+@pytest.mark.parametrize("aw,gids,ports", BIRRD_ROUTED)
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("masked", [False, True])
+def test_birrd_switch_matches_stage_matrices_and_jax_bitwise(aw, gids, ports,
+                                                             dt, masked):
+    """``ref.birrd_switch`` (the switch kernel's plain version) walks a
+    routed program's switches and wiring: bit for bit the plain stage loop
+    on its compiled matrices and the Pallas ``birrd_apply_p`` in interpret
+    mode, in f32 and bf16, with and without the port mask."""
+    from repro_torch.kernels.birrd_reduce import (_out_port_mask,
+                                                  _routed_configs,
+                                                  compile_switch_program)
+    cfg = _routed_configs(aw, tuple(gids), tuple(ports))
+    mats = compile_switch_program(aw, cfg)
+    xt, xj = _both(_np(np.random.default_rng(aw + 5), (aw, 128)), dt)
+    mask = _out_port_mask(aw, tuple(ports), torch.device("cpu")) \
+        if masked else None
+    y = ref.birrd_switch(xt, cfg, mask)
+    assert y.dtype == TORCH_DT[dt] and y.shape == (aw, 128)
+    assert torch.equal(y, ref.birrd_apply(xt, torch.from_numpy(mats), mask))
+    want = _f32(_jax_birrd_apply_p(xj, mats))
+    if masked:
+        want = np.where(mask.numpy()[:, None], want, 0.0)
+    assert np.array_equal(_f32(y), want)
+
+
+def test_birrd_program_codes_round_trip():
+    """A program's codes (one byte a switch, stage-major) decode back to its
+    configs; a program of the wrong shape or with a bad config is refused
+    before anything is uploaded."""
+    from repro_torch.kernels import birrd_reduce as bk
+    for aw, gids, ports in BIRRD_ROUTED:
+        cfg = bk._routed_configs(aw, tuple(gids), tuple(ports))
+        codes = bk.encode_program(aw, cfg)
+        assert codes.dtype == np.uint8
+        assert codes.shape == (len(bk._birrd(aw).perms), aw // 2)
+        assert bk.decode_program(codes) == [list(row) for row in cfg]
+        _, dev = bk._routed_program(aw, tuple(gids), tuple(ports),
+                                    torch.device("cpu"))
+        assert np.array_equal(dev.numpy(), codes)
+    with pytest.raises(ValueError, match="stages"):
+        bk.encode_program(8, [[0] * 4] * 5)
+    with pytest.raises(ValueError, match="bad config"):
+        bk.encode_program(4, [[0, 4], [0, 0], [0, 0]])
+
+
+# the twelve ResNet-50 batch-8 plan steps (M, K, N, block_n) as the executor
+# launches them, and the JAX kernel sweep's shapes
+RESNET_STEPS = [
+    (100352, 147, 64, 64), (25088, 64, 64, 64), (25088, 576, 64, 64),
+    (25088, 64, 256, 128), (6272, 256, 128, 128), (6272, 1152, 128, 128),
+    (6272, 128, 512, 128), (1568, 512, 256, 128), (1568, 2304, 256, 128),
+    (1568, 256, 1024, 128), (392, 1024, 512, 128), (392, 4608, 512, 128)]
+JAX_SWEEP = [(128, 128, 256, 128), (256, 384, 512, 128),
+             (256, 256, 1024, 256)]
+
+
+@pytest.mark.parametrize("m,k,n,bn", RESNET_STEPS + JAX_SWEEP)
+def test_rir_launch_plan_does_not_depend_on_m(m, k, n, bn):
+    """The kernel's cut of a GEMM: the same tile, K-splits and K ranges
+    for every M, so a row's sums are taken in the same order whatever rows
+    share its launch; the K ranges tile [0, K) in whole slices, none
+    empty, at most 8 splits (a portable cluster), a power of two."""
+    plan = rk.launch_plan(m, k, n, bn)
+    for rows in (1, 7, 49, 127, 128, 129, 392, m // 3 + 1, m, 2 * m):
+        assert rk.launch_plan(rows, k, n, bn) == plan
+    assert n % plan.tile_n == 0 and plan.tile_n in (64, 128)
+    assert plan.splits in (1, 2, 4, 8) and plan.splits <= rk.MAX_SPLITS
+    b = plan.k_bounds
+    assert len(b) == plan.splits + 1 and b[0] == 0 and b[-1] == k
+    assert all(lo < hi for lo, hi in zip(b, b[1:]))
+    assert all(x % rk.TILE_K == 0 for x in b[:-1])
+    if plan.splits > 1:
+        assert min(hi - lo for lo, hi in zip(b, b[1:])) \
+            >= rk.SPLIT_MIN_SLICES * rk.TILE_K - rk.TILE_K
+    assert plan.kernels == (rk.KERNELS if plan.splits > 1
+                            else rk.KERNELS[:1])
+
+
+def test_rir_launch_plan_mirrors_the_source():
+    """The wrapper's cut uses the kernel's tile constants, and the kernel
+    computes a split's K range as ``_k_bounds`` does."""
+    src = rk.SOURCE.read_text()
+    consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
+    assert int(consts["kTileM"]) == rk.TILE_M
+    assert int(consts["kTileK"]) == rk.TILE_K
+    assert int(consts["kMaxSplits"]) == rk.MAX_SPLITS
+    assert "const int per = (k_tiles + splits - 1) / splits;" in src
+    assert "const int kt0 = blockIdx.z * per;" in src
+    assert "__launch_bounds__(2 * TN, 128 / TN)  // kThreads<TN>\n" \
+        f"{rk.KERNELS[0]}(" in src
+    assert "constexpr int kThreads = kTileM * TN / 64;" in src
+    assert f"__launch_bounds__(kReduceThreads)\n{rk.KERNELS[1]}(" in src
+    # the kernel's split j walks slices [j * per, min((j + 1) * per, all))
+    for k in (147, 576, 1152, 4608, 1000):
+        for splits in (1, 2, 4, 8):
+            slices = -(-k // 16)
+            per = -(-slices // splits)
+            if (splits - 1) * per >= slices:
+                continue
+            want = tuple(min(j * per * 16, k) for j in range(splits)) + (k,)
+            assert rk._k_bounds(k, splits) == want
