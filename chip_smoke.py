@@ -33,13 +33,16 @@ Phases, each of which raises on failure (nothing is caught and skipped):
    llama3.2-3b decode shape (B 8, Hq 24, Hkv 8, D 128, S 1024, lengths
    960-1023, bf16), timed over one cache per layer (as decode reads them)
    against the plain version, ``scaled_dot_product_attention`` (yardstick
-   only) and the byte bound.
+   only) and the byte bound: each by device time (its kernels' profiler
+   events), queued behind a spin kernel and in CUDA events.
 8. LM serving (the LM path): ``api.ServeEngine`` on llama3.2-3b at full
    width (28 layers, random weights from a seed) at ``max_batch=8``,
    ``prompt_len=960``, ``gen=64``: 16 requests, 1764 ``gqa_decode``
    launches a batch; 4 of them again one a batch, identical tokens; one
-   batch under ``torch.profiler``; decode logits at 4 teacher-forced steps
-   against ``hidden_states`` + ``logits`` of the whole sequence (bf16).
+   batch under ``torch.profiler``, whose only ``gqa`` device kernel is the
+   decode kernel, with no more events than launches; decode logits at 4
+   teacher-forced steps against ``hidden_states`` + ``logits`` of the
+   whole sequence (bf16).
 9. The dense LM in f32 at reduced depth (llama3.2-3b widths, 2 layers, TF32
    off): prefill and 7 decode steps on the card against the same weights
    on the CPU (plain path), rtol/atol 2e-4.
@@ -48,16 +51,19 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     ``repro_torch.kernels.ref.linear_scan_chunked``, ragged T against the
     stepwise ``ref.linear_scan``, a -60 log decay; then the rwkv6-1.6b
     training shape (B 8, H 32, T 1024, dk = dv = 64, bf16 q/k/v, f32 log
-    decay), checked and timed against the plain chunked version and the
-    card's bound; then the autograd Function's gradient against autograd
-    through the plain chunked version.
+    decay), checked and timed (device time and CUDA events) against the
+    plain chunked version and the card's bound; then the autograd
+    Function's gradient against autograd through the plain chunked
+    version.
 11. Training (the training path): ``api.make_train_step`` on rwkv6-1.6b
     at full width (24 layers, random bf16 weights from a seed, f32 AdamW
     state) with the WSD schedule over ``SyntheticLMStream`` at batch 8 x
     seq 1024 for 8 steps: finite losses, the first within 0.5 of ln 65536,
     the last below the first, 48 ``linear_scan`` launches a step (24 in the
     forward, 24 in the remat recompute); step ms, tokens/s, peak memory and
-    the share of bf16 peak; one more step under ``torch.profiler``.  Then
+    the share of bf16 peak; one more step under ``torch.profiler``, its
+    device time split between the scan's plain backward, AdamW (their
+    profiler ranges) and the rest.  Then
     2 layers at rwkv6 widths in f32 (TF32 off): loss and gradients on the
     card against the CPU within 2e-4 of max |g|.
 12. rwkv6 serving: ``api.ServeEngine`` at full width with weights drawn
@@ -101,12 +107,12 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     ``gqa_decode`` launches a step (at B 8, Hq = Hkv = 32, D 80); 2 of
     them again one a batch, identical tokens; one batch under
     ``torch.profiler`` for the device's busy share.  ``gqa_decode`` timed
-    at that decode shape from its kernel events, as in 13.  Then
+    at that decode shape as in 7, beside SDPA.  Then
     ``hidden_states`` in bf16 over a served sequence extended to 1024
     tokens: each layer's ``linear_scan`` output
     (H 80, dk = dv = 64) against the plain chunked version on that layer's
-    inputs within 2e-2 x its max, the kernel timed at that shape against
-    its plain version and its bound.  Then all 54 layers in f32 (TF32
+    inputs within 2e-2 x its max, the kernel timed at that shape (device
+    time) against its plain version and its bound.  Then all 54 layers in f32 (TF32
     off): decode over 68 tokens against ``hidden_states`` within 2e-4 x
     max |logit|.  Each asserts that zeroing the scan's output moves the
     logits by at least 0.1 of their max.
@@ -270,12 +276,14 @@ def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5,
     """Device milliseconds of one call of ``fn()``, from the kernel events
     of a ``torch.profiler`` loop of ``iters`` calls: the mean duration of
     the events of each name in ``kernels`` (each launched once a call),
-    summed.  The host's time to issue a call is left out.  The profiler
-    may keep only some of a loop's events (37 of 50 in one run), so the
-    mean per event is taken, not the loop's sum over ``iters``; now and
-    then it keeps none of a kernel's, and the loop is profiled again, up
-    to ``attempts`` times.  Returns the time and ``[name, device ms in
-    all, events kept]`` a kernel."""
+    summed.  ``kernels=None`` takes every device event of the loop, each
+    name weighted by its launches a call (its events over ``iters``,
+    rounded: the yardsticks' own kernels).  The host's time to issue a call
+    is left out.  The profiler may keep only some of a loop's events (37 of
+    50 in one run), so the mean per event is taken, not the loop's sum over
+    ``iters``; now and then it keeps none of a kernel's, and the loop is
+    profiled again, up to ``attempts`` times.  Returns the time and
+    ``[name, device ms in all, events kept]`` a kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -288,6 +296,16 @@ def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5,
                 fn()
             torch.cuda.synchronize()
         by_name, _ = device_time_by_kernel(prof)
+        if kernels is None:
+            if by_name:
+                return (sum(us / n * max(1, round(n / iters))
+                            for us, _, n in by_name) / 1e3,
+                        [[name[:60], round(us / 1e3, 4), n]
+                         for us, name, n in by_name])
+            kernel = "device"
+            log(f"[profile] no device event kept (attempt {attempt + 1} of "
+                f"{attempts})")
+            continue
         ms, seen = 0.0, []
         for kernel in kernels:
             us = sum(u for u, name, _ in by_name if kernel in name)
@@ -381,18 +399,35 @@ def device_time_by_kernel(prof):
     copies, memsets) from a ``torch.profiler`` run, largest first, and
     their sum in ms (the device's busy time).  Host ops are left out: an
     op that launched a kernel carries that kernel's time too, so counting
-    both would count it twice (the autograd backward's ops do)."""
+    both would count it twice (the autograd backward's ops do); and so are
+    the device's copies of host ranges (``record_function``), which share
+    the range's name and span its kernels and the gaps between them."""
     from torch.autograd import DeviceType
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    by_name = sorted(((dev_us(e), e.key, e.count)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0),
-                     reverse=True)
+    events = prof.key_averages()
+    host = {e.key for e in events if e.device_type == DeviceType.CPU}
+    by_name = sorted(((dev_us(e), e.key, e.count) for e in events
+                      if e.device_type == DeviceType.CUDA and dev_us(e) > 0
+                      and e.key not in host), reverse=True)
     return by_name, sum(us for us, _, _ in by_name) / 1e3
+
+
+def range_device_ms(prof, name: str):
+    """Device ms of the kernels launched under the ``torch.profiler`` range
+    ``name`` (its host-side events: the device's own copy of a range would
+    count its span, not its kernels), and how often the range ran."""
+    from torch.autograd import DeviceType
+    ms, n = 0.0, 0
+    for e in prof.key_averages():
+        if e.key == name and e.device_type == DeviceType.CPU:
+            ms += getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0)) / 1e3
+            n += e.count
+    return ms, n
 
 
 def stack_frames(build_log: str) -> dict:
@@ -794,52 +829,75 @@ def phase_gqa_sweep(torch, ops, ref) -> dict:
     return {"cases": n, "worst": worst}
 
 
-def phase_gqa_llama(torch, api, ops, ref) -> dict:
-    """``gqa_decode`` at the llama3.2-3b decode shape, bf16: checked, then
-    timed over one K/V cache per layer (0.94 GB in all, so each launch
-    finds its cache cold in the 50 MB L2, as a decode step does)."""
+def gqa_times(torch, ops, ref, kernels, B, Hq, Hkv, D, S, lens,
+              n_caches, seed) -> dict:
+    """``gqa_decode`` at one decode shape in bf16 over ``n_caches`` K/V
+    caches taken in turn (each cold in the 50 MB L2, as a decode step finds
+    its layer's cache): held against the plain version and SDPA, then the
+    kernel (whose device kernels are ``kernels``), the plain version and
+    ``scaled_dot_product_attention`` (the yardstick, not on the path: the
+    same caches as (B, H, S, D) views, length mask) timed by device time
+    (``kernel_ms``), queued behind a spin kernel (``queued_ms``) and in
+    CUDA events around back-to-back calls (``cuda_ms``)."""
     import torch.nn.functional as F
-    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
-    B, Hq, Hkv, D = LM_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    S, L = LM_PROMPT + LM_GEN, cfg.n_layers
-    gen = torch.Generator(device=DEV).manual_seed(6)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
     q = torch.randn(B, Hq, D, generator=gen, device=DEV).to(torch.bfloat16)
     ks = [torch.randn(B, S, Hkv, D, generator=gen, device=DEV)
-          .to(torch.bfloat16) for _ in range(L)]
+          .to(torch.bfloat16) for _ in range(n_caches)]
     vs = [torch.randn(B, S, Hkv, D, generator=gen, device=DEV)
-          .to(torch.bfloat16) for _ in range(L)]
-    lens = torch.randint(LM_PROMPT, S, (B,), generator=gen, device=DEV,
-                         dtype=torch.int32)
-    want = ref.gqa_decode(q, ks[0], vs[0], lens)
-    err = check_close("gqa llama shape", ops.gqa_decode(q, ks[0], vs[0],
-                                                        lens),
-                      want, GQA_TOL["bf16"], GQA_TOL["bf16"])
-    # the yardstick: one PyTorch call for the same function (not on the
-    # path): SDPA over (B, H, S, D) views of the same caches, length mask
+          .to(torch.bfloat16) for _ in range(n_caches)]
+    lens = torch.as_tensor(lens, dtype=torch.int32, device=DEV)
     mask = (torch.arange(S, device=DEV)[None, :] < lens[:, None]
             )[:, None, None, :]
+
+    def kern(i):
+        return ops.gqa_decode(q, ks[i], vs[i], lens)
+
+    def plain(i):
+        return ref.gqa_decode(q, ks[i], vs[i], lens)
 
     def sdpa(i):
         return F.scaled_dot_product_attention(
             q[:, :, None, :], ks[i].transpose(1, 2), vs[i].transpose(1, 2),
             attn_mask=mask, enable_gqa=True)[:, :, 0, :]
-    sdpa_err = check_close("sdpa yardstick", sdpa(0), want,
-                           GQA_TOL["bf16"], GQA_TOL["bf16"])
-    ms = cuda_ms(cycling(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens), L),
-                 iters=4 * L, warmup=L)
-    plain_ms = cuda_ms(cycling(lambda i: ref.gqa_decode(q, ks[i], vs[i],
-                                                        lens), L),
-                       iters=L, warmup=2)
-    library_ms = cuda_ms(cycling(sdpa, L), iters=4 * L, warmup=L)
+    want = plain(0)
+    err = check_close("gqa decode shape", kern(0), want, GQA_TOL["bf16"],
+                      GQA_TOL["bf16"])
+    sdpa_err = check_close("sdpa yardstick", sdpa(0), want, GQA_TOL["bf16"],
+                           GQA_TOL["bf16"])
+    n = n_caches
+    k_loop, p_loop, s_loop = (cycling(f, n) for f in (kern, plain, sdpa))
+    ms, seen = kernel_ms(k_loop, kernels, iters=4 * n, warmup=n)
+    plain_ms, _ = kernel_ms(p_loop, None, iters=2 * n, warmup=2)
+    library_ms, lib_seen = kernel_ms(s_loop, None, iters=4 * n, warmup=n)
     gb = gqa_bound(B, Hq, Hkv, D, int(lens.sum()))
     rec = {"B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S,
-           "lengths": lens.tolist(), "max_abs_err": err,
-           "sdpa_max_abs_err": sdpa_err, "ms": ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, **gb,
-           "achieved_gb_s": gb["mbytes"] * 1e6 / (ms * 1e-3) / 1e9}
-    log("[gqa] llama shape " + json.dumps(rec))
+           "lengths": lens.tolist(), "caches": n, "max_abs_err": err,
+           "sdpa_max_abs_err": sdpa_err, "ms": ms, "device_kernels": seen,
+           "queued_ms": queued_ms(k_loop, iters=4 * n, warmup=n),
+           "event_ms": cuda_ms(k_loop, iters=4 * n, warmup=n),
+           "plain_ms": plain_ms,
+           "plain_queued_ms": queued_ms(p_loop, iters=2 * n, warmup=2),
+           "library_ms": library_ms, "library_kernels": lib_seen,
+           "library_queued_ms": queued_ms(s_loop, iters=4 * n, warmup=n),
+           "library_event_ms": cuda_ms(s_loop, iters=4 * n, warmup=n),
+           **gb, "achieved_gb_s": gb["mbytes"] * 1e6 / (ms * 1e-3) / 1e9}
     del ks, vs
     torch.cuda.empty_cache()
+    return rec
+
+
+def phase_gqa_llama(torch, api, ops, ref, gk) -> dict:
+    """``gqa_decode`` at the llama3.2-3b decode shape, bf16: checked, then
+    timed over one K/V cache per layer (0.94 GB in all, so each launch
+    finds its cache cold in the 50 MB L2, as a decode step does)."""
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    B, S = LM_BATCH, LM_PROMPT + LM_GEN
+    lens = torch.randint(LM_PROMPT, S, (B,), dtype=torch.int32,
+                         generator=torch.Generator().manual_seed(6))
+    rec = gqa_times(torch, ops, ref, [gk.KERNEL], B, cfg.n_heads,
+                    cfg.n_kv_heads, cfg.head_dim, S, lens, cfg.n_layers, 6)
+    log("[gqa] llama shape " + json.dumps(rec))
     return rec
 
 
@@ -904,20 +962,33 @@ def phase_lm_serve(torch, api, gk, obs) -> dict:
         prefill = obs.hist_stats("serve.prefill_ms")
         decode = obs.hist_stats("serve.decode_ms_per_token")
         obs.reset()                                # profile untraced
+        before = gk.launch_count()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng.serve(reqs[:LM_BATCH])
             wall_s = time.perf_counter() - t0
+        prof_launches = gk.launch_count() - before
     if launches != per_batch * batches or launches == 0:
         raise AssertionError(f"LM serve: {launches} gqa_decode launches for "
                              f"{batches} batches ({per_batch} a batch)")
+    by_name, busy_ms = device_time_by_kernel(prof)
+    # one device kernel a launch: the profiled batch's only gqa kernel is
+    # the decode kernel, with no more events than launches (the profiler
+    # may drop some events, never add)
+    gqa_kernels = [[name, n] for _, name, n in by_name if "gqa" in name]
+    if len(gqa_kernels) != 1 or gk.KERNEL not in gqa_kernels[0][0] \
+            or not 0 < gqa_kernels[0][1] <= prof_launches:
+        raise AssertionError(f"LM serve: {prof_launches} gqa_decode launches"
+                             f" in the profiled batch, device kernels "
+                             f"{gqa_kernels}")
     for o in outs:
         if o.shape != (LM_GEN,) or o.min() < 0 or o.max() >= cfg.vocab:
             raise AssertionError(f"LM serve: bad tokens {o.shape}")
-    by_name, busy_ms = device_time_by_kernel(prof)
     rec.update({
         "gqa_launches": launches, "batches": batches,
+        "profiled_gqa_launches": prof_launches,
+        "profiled_gqa_kernels": [[n[:60], c] for n, c in gqa_kernels],
         "gqa_launches_per_batch": launches / batches, "seconds": secs,
         "requests_per_s": LM_REQUESTS / secs,
         "generated_tokens_per_s": LM_REQUESTS * LM_GEN / secs,
@@ -1023,6 +1094,25 @@ def scan_bound(q, k, v, w, out) -> dict:
             "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
 
 
+def scan_times(torch, ops, ref, kernels, q, k, v, w) -> dict:
+    """``linear_scan`` at one shape, timed: the kernel (whose device kernels
+    are ``kernels``) by device time (``kernel_ms``) and in CUDA events
+    around back-to-back calls, the plain chunked version by device time;
+    and the bound."""
+    def kern():
+        return ops.linear_scan(q, k, v, w)
+    ms, seen = kernel_ms(kern, kernels, iters=20, warmup=3)
+    plain_ms, _ = kernel_ms(lambda: ref.linear_scan_chunked(q, k, v, w),
+                            None, iters=5, warmup=1)
+    sb = scan_bound(q, k, v, w, v)          # out: v's shape and type
+    B, H, T, dk = q.shape
+    return {"B": B, "H": H, "T": T, "dk": dk, "dv": v.shape[-1],
+            "dtype": str(q.dtype).replace("torch.", ""), "ms": ms,
+            "device_kernels": seen, "event_ms": cuda_ms(kern, iters=20),
+            "plain_ms": plain_ms, "library_ms": None, **sb,
+            "achieved_tflop_s": sb["gflop"] / ms}
+
+
 def phase_scan_sweep(torch, ops, ref, lk) -> dict:
     """``linear_scan`` against the plain versions: the sweep in f32 and
     bf16, ragged T, a -60 log decay, the training shape (timed), and the
@@ -1068,14 +1158,8 @@ def phase_scan_sweep(torch, ops, ref, lk) -> dict:
     want = ref.linear_scan_chunked(q, k, v, w)
     err = check_close("scan training shape", ops.linear_scan(q, k, v, w),
                       want, SCAN_TOL["bf16"], SCAN_TOL["bf16"])
-    ms = cuda_ms(lambda: ops.linear_scan(q, k, v, w), iters=20)
-    plain_ms = cuda_ms(lambda: ref.linear_scan_chunked(q, k, v, w), iters=5,
-                       warmup=1)
-    sb = scan_bound(q, k, v, w, want)
-    rec = {"B": B, "H": H, "T": T, "dk": dk, "dv": dv, "dtype": "bf16",
-           "max_abs_err": err, "ref_max_abs": float(want.abs().max()),
-           "ms": ms, "plain_ms": plain_ms, "library_ms": None, **sb,
-           "achieved_tflop_s": sb["gflop"] / ms}
+    rec = {"max_abs_err": err, "ref_max_abs": float(want.abs().max()),
+           **scan_times(torch, ops, ref, [lk.KERNEL], q, k, v, w)}
     log("[scan] training shape " + json.dumps(rec))
     del q, k, v, w, want
 
@@ -1113,6 +1197,9 @@ def phase_train(torch, api, lk, obs) -> dict:
 
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ops import BACKWARD_RANGE
+    from repro_torch.optim.adamw import UPDATE_RANGE
     gc.collect()
     torch.cuda.empty_cache()
     cfg = api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE)
@@ -1171,8 +1258,15 @@ def phase_train(torch, api, lk, obs) -> dict:
         torch.cuda.synchronize()
         prof_wall_s = time.perf_counter() - t1
     by_name, busy_ms = device_time_by_kernel(prof)
-    scan_ms = sum(us for us, name, _ in by_name
-                  if "linear_scan_kernel" in name) / 1e3
+    scan_ms = sum(us for us, name, _ in by_name if lk.KERNEL in name) / 1e3
+    # the step's device time under the scan's plain backward and under
+    # AdamW (profiler ranges), and the rest
+    split = {}
+    for name in (BACKWARD_RANGE, UPDATE_RANGE):
+        ms, n = range_device_ms(prof, name)
+        split[name] = {"device_ms": ms, "calls": n}
+    split["rest"] = {"device_ms": busy_ms - sum(
+        r["device_ms"] for r in split.values())}
     rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "params": n_params,
            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": steps,
            "init_s": init_s, "losses": losses, "lr": lrs,
@@ -1185,7 +1279,7 @@ def phase_train(torch, api, lk, obs) -> dict:
            "profiled_step_wall_ms": prof_wall_s * 1e3,
            "device_busy_ms": busy_ms,
            "device_busy_share": busy_ms / (prof_wall_s * 1e3),
-           "scan_kernel_ms_in_step": scan_ms,
+           "scan_kernel_ms_in_step": scan_ms, "step_device_split": split,
            "device_ops": sum(c for _, _, c in by_name),
            "top_device_ms": [[name[:60], round(us / 1e3, 4), c]
                              for us, name, c in by_name[:12]]}
@@ -1713,37 +1807,15 @@ def phase_zamba_serve(torch, api, ops, ref, gk, lk, obs) -> dict:
         f"identical to the batched run")
 
     # gqa_decode at zamba2's decode shape, timed over one cache an
-    # invocation (cold in L2, as a decode step finds them)
+    # invocation (cold in L2, as a decode step finds them), beside SDPA
     inv, S = model.n_invocations, ZAMBA_PROMPT + ZAMBA_GEN
-    gen = torch.Generator(device=DEV).manual_seed(71)
-    q = torch.randn(ZAMBA_BATCH, cfg.n_heads, cfg.head_dim, generator=gen,
-                    device=DEV).to(torch.bfloat16)
-    ks = [torch.randn(ZAMBA_BATCH, S, cfg.n_kv_heads, cfg.head_dim,
-                      generator=gen, device=DEV).to(torch.bfloat16)
-          for _ in range(inv)]
-    vs = [torch.randn_like(k_) for k_ in ks]
     lens = torch.arange(ZAMBA_PROMPT, S, ZAMBA_GEN // ZAMBA_BATCH,
-                        device=DEV, dtype=torch.int32)
-    # device times as in phase 13: 2.9 MB of K/V takes the kernels less
-    # than the wrapper's host cost, which CUDA events around back-to-back
-    # calls measure instead (printed beside)
-    kern = cycling(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens), inv)
-    plain = cycling(lambda i: ref.gqa_decode(q, ks[i], vs[i], lens), inv)
-    g_ms, g_seen = kernel_ms(kern, ["gqa_split_kernel", "gqa_merge_kernel"],
-                             iters=4 * inv, warmup=inv)
-    rec["gqa_decode_shape"] = {
-        "B": ZAMBA_BATCH, "Hq": cfg.n_heads, "Hkv": cfg.n_kv_heads,
-        "D": cfg.head_dim, "S": S, "ms": g_ms,
-        "queued_ms": queued_ms(kern, iters=4 * inv, warmup=inv),
-        "event_ms": cuda_ms(kern, iters=4 * inv, warmup=inv),
-        "device_kernels": g_seen,
-        "plain_ms": queued_ms(plain, iters=2 * inv, warmup=2),
-        "plain_event_ms": cuda_ms(plain, iters=2 * inv, warmup=2),
-        **gqa_bound(ZAMBA_BATCH, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                    int(lens.sum()))}
+                        dtype=torch.int32)
+    rec["gqa_decode_shape"] = gqa_times(
+        torch, ops, ref, [gk.KERNEL], ZAMBA_BATCH, cfg.n_heads,
+        cfg.n_kv_heads, cfg.head_dim, S, lens, inv, 71)
     log("[zamba] gqa_decode at the decode shape "
         + json.dumps(rec["gqa_decode_shape"]))
-    del ks, vs
 
     # bf16 forward of a served sequence, extended to ZAMBA_SCAN_T tokens:
     # each layer's scan held on its own inputs against the plain version
@@ -1779,17 +1851,11 @@ def phase_zamba_serve(torch, api, ops, ref, gk, lk, obs) -> dict:
                              f"linear_scan launches for {cfg.n_layers} "
                              f"layers")
     q_, k_, v_, w_, err = seen.pop("first")
-    B_, H_, T_, dk = q_.shape
-    dv = v_.shape[-1]
-    ms = cuda_ms(lambda: ops.linear_scan(q_, k_, v_, w_), iters=10)
-    plain_ms = cuda_ms(lambda: ref.linear_scan_chunked(q_, k_, v_, w_),
-                       iters=3, warmup=1)
     rec["bf16_scan_in_model"] = {
-        "positions": T, "layers": launches_fwd, "B": B_, "H": H_, "T": T_,
-        "dk": dk, "dv": dv, "scan_worst_ratio": seen["worst"],
-        "scan_limit": SCAN_TOL["bf16"], "layer0_max_abs_err": err,
-        "scan_effect_ratio": effect, "ms": ms, "plain_ms": plain_ms,
-        **scan_bound(q_, k_, v_, w_, v_)}       # out: v's shape and type
+        "positions": T, "layers": launches_fwd,
+        "scan_worst_ratio": seen["worst"], "scan_limit": SCAN_TOL["bf16"],
+        "layer0_max_abs_err": err, "scan_effect_ratio": effect,
+        **scan_times(torch, ops, ref, [lk.KERNEL], q_, k_, v_, w_)}
     log("[zamba] bf16, the kernel on every layer's inputs "
         + json.dumps(rec["bf16_scan_in_model"]))
     if not effect >= SSM_MIN_SCAN_EFFECT:
@@ -1895,7 +1961,7 @@ def main(argv=None) -> int:
                             cache, nets)
     record["gqa_sweep"] = run("gqa_sweep", phase_gqa_sweep, torch, ops, ref)
     record["gqa_llama"] = run("gqa_llama", phase_gqa_llama, torch, api, ops,
-                              ref)
+                              ref, gk)
     record["lm_serve"] = run("lm_serve", phase_lm_serve, torch, api, gk, obs)
     record["lm_f32"] = run("lm_f32", phase_lm_f32, torch, api, gk)
     record["scan_sweep"] = run("scan_sweep", phase_scan_sweep, torch, ops,

@@ -5,13 +5,14 @@ The kernel (``csrc/linear_scan.cu``) is the Hopper counterpart of the JAX
 package's Pallas ``linear_scan``: per (b, h) the recurrence
 ``h_t = exp(logw_t) * h_{t-1} + k_t^T v_t``, ``y_t = q_t h_t`` with an f32
 ``(dk, dv)`` state, computed in chunks of 64 steps (three small products a
-chunk, intra-chunk scores through 16-row sub-chunks, every exponent <= 0).
+chunk, intra-chunk scores through 16-row blocks, every exponent <= 0).
 Where the TPU grid walks the chunks of one (b, h) in order and carries the
 state in VMEM scratch, one CTA takes one (b, h) and walks its chunks in a
-loop with the state in shared memory.  The last chunk of a T that 64 does
-not divide is masked (its padding counts as k = v = 0, log decay 0), so any
-T runs the kernel.  There is no backward kernel: ``ops.linear_scan``
-recomputes through the plain chunked version, as the JAX package does.
+loop with the state in shared memory; at bf16 64/64 its buffers take 99 KB,
+so two CTAs share an SM.  The last chunk of a T that 64 does not divide is
+masked (its padding counts as k = v = 0, log decay 0), so any T runs the
+kernel.  There is no backward kernel: ``ops.linear_scan`` recomputes
+through the plain chunked version, as the JAX package does.
 
 Build: at first CUDA use ``build.load`` compiles the source with ``nvcc``
 for ``sm_90a`` into ``build/kernels/`` and binds it with ``ctypes``.
@@ -30,6 +31,8 @@ from .ref import CHUNK, SUB  # noqa: F401  (the kernel's kChunk / kSub)
 
 NAME = "linear_scan"
 SOURCE = _build.CSRC / f"{NAME}.cu"
+#: the kernel's name in a profile
+KERNEL = "linear_scan_kernel"
 #: head dims the kernel is instantiated for (dk and dv each)
 HEAD_DIMS = (16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
@@ -99,6 +102,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"operands on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError("linear_scan_cuda operands must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("linear_scan_cuda operands must be 16-byte "
+                             "aligned (the kernel stages 16 bytes at a "
+                             "time)")
 
 
 def linear_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

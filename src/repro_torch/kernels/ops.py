@@ -35,6 +35,8 @@ from .linear_scan import linear_scan_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
 
 Perm = Union[Sequence[int], torch.Tensor, None]
+#: the ``torch.profiler`` range around ``linear_scan``'s backward
+BACKWARD_RANGE = "linear_scan.backward"
 
 
 def _check_perm(perm: Tuple[int, ...], n_blocks: int) -> Tuple[int, ...]:
@@ -170,7 +172,10 @@ class _LinearScan(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
+        # a profiler label (BACKWARD_RANGE), so that a profiled train step
+        # can tell this plain backward's device time from the rest
+        with torch.profiler.record_function(BACKWARD_RANGE), \
+                torch.enable_grad():
             out = ref.linear_scan_chunked(*ins)
             return torch.autograd.grad(out, ins, g)
 

@@ -17,6 +17,8 @@ import numpy as np
 import torch
 
 Params = Mapping[str, torch.Tensor]
+#: the ``torch.profiler`` range around ``adamw_update``
+UPDATE_RANGE = "adamw.update"
 
 
 @dataclasses.dataclass
@@ -56,19 +58,21 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
                  eps: float = 1e-8, weight_decay: float = 0.1,
                  max_grad_norm: float = 1.0) -> Tuple[Params, AdamWState]:
     """One AdamW step over every name of ``params``; returns (params,
-    state), both updated in place."""
-    grads, _ = clip_by_global_norm(grads, max_grad_norm)
-    state.step += 1
-    f32 = np.float32
-    b1c = float(1 - f32(b1) ** f32(state.step))
-    b2c = float(1 - f32(b2) ** f32(state.step))
-    lr = float(lr)
-    for name, p in params.items():
-        g, m, v, w = grads[name], state.mu[name], state.nu[name], \
-            state.master[name]
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        upd = (m / b1c) / (torch.sqrt(v / b2c) + eps) + weight_decay * w
-        w.copy_(w - lr * upd)
-        p.copy_(w)                     # cast to the param's dtype
+    state), both updated in place.  Runs under the profiler range
+    ``UPDATE_RANGE``."""
+    with torch.profiler.record_function(UPDATE_RANGE):
+        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        state.step += 1
+        f32 = np.float32
+        b1c = float(1 - f32(b1) ** f32(state.step))
+        b2c = float(1 - f32(b2) ** f32(state.step))
+        lr = float(lr)
+        for name, p in params.items():
+            g, m, v, w = grads[name], state.mu[name], state.nu[name], \
+                state.master[name]
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            upd = (m / b1c) / (torch.sqrt(v / b2c) + eps) + weight_decay * w
+            w.copy_(w - lr * upd)
+            p.copy_(w)                     # cast to the param's dtype
     return params, state

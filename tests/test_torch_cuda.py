@@ -265,6 +265,57 @@ def test_gqa_decode_lengths_on_card(cuda):
         assert torch.equal(one[0], y[i])
 
 
+def _device_kernels(prof):
+    """``[(name, events)]`` of every device event a profile kept."""
+    from torch.autograd import DeviceType
+    return [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+
+
+def test_gqa_decode_one_kernel_and_no_scratch_allocation_on_card(cuda):
+    """At the llama3.2-3b decode shape a call is one device kernel (no
+    merge kernel, no memset) and, once the stream has its workspace, the
+    output is the call's only allocation."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, lens = _gqa_inputs(8, 24, 8, 128, 1024, torch.bfloat16, cuda, 3)
+    want = ops.gqa_decode(q, k, v, lens)     # the stream's workspace
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    outs = [ops.gqa_decode(q, k, v, lens) for _ in range(5)]
+    assert torch.cuda.memory_stats()["allocation.all.allocated"] \
+        == before + len(outs)
+    # the profiler may drop some events of a short loop, never add any
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.gqa_decode(q, k, v, lens)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    assert kernels and all(gk.KERNEL in name for name, _ in kernels)
+    assert 1 <= sum(n for _, n in kernels) <= 10
+    for y in outs:
+        assert torch.equal(y, want)
+
+
+def test_gqa_decode_streams_keep_their_own_workspace_on_card(cuda):
+    """Calls queued on two streams at once, several splits a row, never
+    share counters or partials: every result equals the one-stream
+    result."""
+    q, k, v, lens = _gqa_inputs(4, 8, 2, 64, 1500, torch.float32, cuda, 4)
+    want = ops.gqa_decode(q, k, v, lens)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    got = []
+    for i in range(20):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(ops.gqa_decode(q, k, v, lens))
+    torch.cuda.synchronize()
+    for y in got:
+        assert torch.equal(y, want)
+    ws = [gk._workspaces[(q.device.index, s.cuda_stream)] for s in streams]
+    assert ws[0][0].data_ptr() != ws[1][0].data_ptr()
+    assert ws[0][1].data_ptr() != ws[1][1].data_ptr()
+
+
 def test_gqa_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v, lens = _gqa_inputs(2, 4, 2, 64, 256, torch.float32, cuda, 1)
     with pytest.raises(ValueError, match="head dim"):
@@ -376,6 +427,28 @@ def test_linear_scan_grad_on_card(cuda):
                                    atol=1e-4 * float(y.abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_scan_head_alone_equals_batched_on_card(cuda, dtype):
+    """One CTA a (b, h): a head's output, scanned alone, is bit for bit the
+    same head's output in a batch, and a call is one device kernel."""
+    from repro_torch.kernels import linear_scan as lk
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, w = _scan_inputs(3, 4, 200, 64, 64, dtype, cuda, 13)
+    y = ops.linear_scan(q, k, v, w)
+    for b, h in ((0, 0), (1, 2), (2, 3)):
+        one = ops.linear_scan(*(x[b:b + 1, h:h + 1].contiguous()
+                                for x in (q, k, v, w)))
+        assert torch.equal(one[0, 0], y[b, h])
+    # the profiler may drop some events of a short loop, never add any
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            ops.linear_scan(q, k, v, w)
+        torch.cuda.synchronize()
+    kernels = _device_kernels(prof)
+    assert kernels and all(lk.KERNEL in name for name, _ in kernels)
+    assert 1 <= sum(n for _, n in kernels) <= 10
+
+
 def test_linear_scan_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v, w = _scan_inputs(1, 2, 64, 32, 32, torch.float32, cuda, 1)
     with pytest.raises(ValueError, match="head dims"):
@@ -392,6 +465,9 @@ def test_linear_scan_rejects_what_the_kernel_does_not_take(cuda):
         ops.linear_scan(q, k, v.cpu(), w)
     with pytest.raises(ValueError, match="shapes"):
         ops.linear_scan(q, k[:, :1].contiguous(), v, w)
+    shifted = torch.empty(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.linear_scan(shifted, k, v, w)
 
 
 def test_rwkv6_loss_and_grads_on_card_match_cpu(cuda):

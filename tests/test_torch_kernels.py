@@ -199,16 +199,72 @@ def test_gqa_decode_cuda_wrapper_checks_before_any_build():
 
 
 def test_gqa_decode_constants_mirror_the_source():
-    """The wrapper sizes the kernel's scratch and shared memory from
-    SPLIT/TILE; they must be the source's kSplit/kTile."""
+    """The wrapper sizes the kernel's workspace and split count from
+    WARP_ROWS/WARP_TILES/SLOTS/MAX_WARPS/MAX_GROUP/ROW_PAD; they must be the
+    source's kWarpRows/kWarpTiles/kSlots/kMaxWarps/kMaxGroup/kRowPad
+    (``load`` also checks the split and shared-memory rules against the
+    built library's)."""
     src = gk.SOURCE.read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
-    assert int(consts["kSplit"]) == gk.SPLIT
-    assert int(consts["kTile"]) == gk.TILE
+    assert (int(consts["kWarpRows"]), int(consts["kWarpTiles"]),
+            int(consts["kSlots"]), int(consts["kMaxWarps"]),
+            int(consts["kMaxGroup"]), int(consts["kRowPad"])) == (
+        gk.WARP_ROWS, gk.WARP_TILES, gk.SLOTS, gk.MAX_WARPS, gk.MAX_GROUP,
+        gk.ROW_PAD)
     assert (int(consts["kMinD"]), int(consts["kMaxD"])) == (gk.D_MIN,
                                                             gk.D_MAX)
-    assert gk.n_splits(1024) == 8 and gk.n_splits(1000) == 8
-    assert gk.smem_bytes(3, 128) < 48 * 1024 < gk.smem_bytes(8, 256)
+    assert f"__global__ void __launch_bounds__(kMaxWarps * 32)\n{gk.KERNEL}(" \
+        in src
+    # 256-position splits (two 32-row tiles for each of four warps, a ring
+    # of three slots a warp) wherever four warps' rings fit: every bf16 D,
+    # f32 up to D = 128; 128 beyond
+    assert gk.SPLIT == 256
+    assert [gk.split_len(D, 2) for D in (16, 80, 128, 256)] == [256] * 4
+    assert [gk.split_len(D, 4) for D in (64, 128, 144, 256)] == \
+        [256, 256, 128, 128]
+    assert gk.n_splits(1024, 128, 2) == 4 and gk.n_splits(1000, 128, 2) == 4
+    assert gk.n_splits(80, 80, 2) == 1 and gk.n_splits(1000, 256, 4) == 8
+    assert [gk.group_width(G) for G in (1, 2, 3, 4, 5, 8, 12)] == \
+        [1, 2, 4, 4, 8, 8, 8]
+    # two CTAs share an SM at the llama3.2-3b decode shape (G 3, D 128,
+    # bf16; 1 KB reserved a CTA of the SM's 228 KB), so its 256 CTAs are
+    # one wave on 132 SMs; every shape fits a block
+    assert 2 * (gk.smem_bytes(3, 128, 2) + 1024) <= 233472
+    assert max(gk.smem_bytes(G, D, it) for G in (1, 8, 64)
+               for D in range(16, 257, 16) for it in (2, 4)) <= gk.MAX_SMEM
+
+
+def test_gqa_decode_workspace_sizes():
+    """A counter for every (b, h, group), and (m, l) and the acc of every
+    (b, h, split, query head)."""
+    B, Hq, Hkv, S, D = 8, 24, 8, 1024, 128       # llama3.2-3b decode
+    assert gk.workspace_sizes(B, Hq, Hkv, S, D, 2) == (
+        B * Hkv, 2 * B * Hkv * 4 * 3, B * Hkv * 4 * 3 * D)
+    assert gk.workspace_sizes(1, 12, 1, 80, 80, 2) == (2, 2 * 12, 12 * 80)
+
+
+def test_gqa_decode_workspace_is_kept_per_stream():
+    """One (counters, partials) pair per (device, stream): reused while
+    large enough, each replaced when too short (the counters by zeros),
+    never shared by two streams."""
+    import types
+    dev = torch.device("cpu")
+    s1, s2 = (types.SimpleNamespace(cuda_stream=n) for n in (101, 102))
+    saved = dict(gk._workspaces)
+    try:
+        cnt, part = gk._workspace(dev, s1, 8, 64)
+        assert cnt.dtype == torch.int32 and cnt.numel() == 8
+        assert not cnt.any() and part.numel() == 64
+        assert gk._workspace(dev, s1, 4, 32) == (cnt, part)
+        other = gk._workspace(dev, s2, 4, 32)
+        assert other[0] is not cnt and other[1] is not part
+        cnt2, part2 = gk._workspace(dev, s1, 8, 128)
+        assert cnt2 is cnt and part2 is not part and part2.numel() == 128
+        cnt3, part3 = gk._workspace(dev, s1, 16, 16)
+        assert part3 is part2 and cnt3.numel() == 16 and not cnt3.any()
+    finally:
+        gk._workspaces.clear()
+        gk._workspaces.update(saved)
 
 
 # ----------------------------------------------------------------- linear_scan
@@ -321,9 +377,15 @@ def test_linear_scan_constants_mirror_the_source():
     src = lk.SOURCE.read_text()
     consts = dict(re.findall(r"constexpr int (k\w+) = (\d+);", src))
     assert (int(consts["kChunk"]), int(consts["kSub"])) == (lk.CHUNK, lk.SUB)
+    assert f"__launch_bounds__(kThreads, kMinBlocks)\n{lk.KERNEL}(" in src
     for d in lk.HEAD_DIMS:
         assert f"case {d}: return launch_dims" in src
         assert f"case {d}: return launch_dv" in src
+    # one launch a call of 256 threads, two CTAs an SM; S between the 4
+    # blocks of 16 rows by 6 pairs of 16 tiles of 4 x 4, inside them by 4
+    # blocks of 10 tiles, 4 lanes a tile
+    assert [int(consts[n]) for n in ("kThreads", "kMinBlocks", "kPreThreads",
+                                     "kDiagThreads")] == [256, 2, 96, 160]
 
 
 # ---------------------------------------------------------------- birrd_reduce

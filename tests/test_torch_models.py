@@ -28,7 +28,8 @@ from repro_torch.models import build_model, common
 from repro_torch.models.lm import param_specs
 from repro_torch.weights import to_torch_lm_params
 
-ARCHS = ["llama3p2_3b", "phi3_mini_3p8b", "nemotron_4_15b", "minicpm_2b"]
+ARCHS = ["llama3p2_3b", "phi3_mini_3p8b", "nemotron_4_15b", "minicpm_2b",
+         "chameleon_34b"]
 TOL = dict(rtol=1e-4, atol=1e-5)
 B, T, MAX_SEQ, N_DECODE = 2, 12, 16, 3
 
