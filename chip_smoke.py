@@ -116,6 +116,31 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     off): decode over 68 tokens against ``hidden_states`` within 2e-4 x
     max |logit|.  Each asserts that zeroing the scan's output moves the
     logits by at least 0.1 of their max.
+16. The serve CLI: ``repro_torch.launch.serve.main`` with ``--graph
+    resnet50 --batch 8 --workers 2`` (its checksum, 12 ``rir_matmul``
+    launches a batch, two outputs against the CPU reference) and with
+    ``--arch llama3p2_3b --batch 8 --prompt-len 128 --gen 16`` (full width
+    and depth, random weights; 28 x 15 ``gqa_decode`` launches a batch:
+    the engine's decode loop runs gen - 1 steps after prefill).
+17. The smokes and the report: ``repro_torch.serve.smoke`` and
+    ``repro_torch.obs.smoke --graph resnet50 --check-identical`` on the
+    card, the trace through ``repro_torch.obs.report --validate``, and
+    the per-step calibration table (measured ``exec.step`` against the
+    plan's modeled cycles, ``rel``) of that cold batch-1 run and of 5 warm
+    traced runs of the served batch-8 plan.
+18. Chaos: ``repro_torch.runtime.chaos --seed 0 --graph resnet50 --arch
+    llama3p2_3b`` on the card: every scheduled fault fires, none escapes,
+    outputs bit-identical at tier <= 1; its counters, and its
+    ``rir_matmul`` and ``gqa_decode`` launches.
+19. Resume: ``repro_torch.launch.train --layers 2`` on rwkv6-1.6b at full
+    width, batch 8 x 1024: 8 steps straight, then 4 with ``--ckpt-every
+    4`` and a resume to 8 in a fresh model that saves at step 6 and 8
+    (final loss within rel 1e-4; each step's seconds and the host seconds
+    between steps from the trainer's ``train.step`` spans, so the save's
+    block of the loop shows at step 6; restore seconds, checkpoint
+    bytes); the checkpoint restored into a fresh model gives back every
+    bf16 parameter and f32 state bit for bit.  The checkpoints go to a
+    temporary directory, removed after.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -131,6 +156,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -241,6 +267,23 @@ ZAMBA_SCAN_T = 1024          # the bf16 forward the kernel is held on
 # all 54 layers in f32: decode over every token against hidden_states
 ZAMBA_F32 = {"batch": 2, "seq": 68, "scale": ZAMBA_SCALE}
 ZAMBA_F32_TOL = 2e-4         # x max |logit|
+# phases 16-19: the runtime around the main path, through its entry points
+CLI_NET = ["--graph", "resnet50", "--batch", "8", "--workers", "2"]
+CLI_LM = ["--arch", "llama3p2_3b", "--batch", "8", "--prompt-len", "128",
+          "--gen", "16"]
+OBS_GRAPH = "resnet50"
+CALIB_RUNS = 5                  # warm traced runs of the served plan
+CHAOS_GRAPH = "resnet50"
+CHAOS_ARCH = "llama3p2_3b"      # its SMOKE config: the chaos serve phase's
+CHAOS_GEN = 4                   # the chaos serve phase's tokens a request
+# rwkv6-1.6b at full width and reduced depth: straight against save+resume
+RESUME_ARCH = "rwkv6_1p6b"
+RESUME_SMOKE = False
+RESUME_LAYERS = 2
+RESUME_BATCH = 8
+RESUME_SEQ = 1024
+RESUME_STEPS = 8
+RESUME_REL = 1e-4               # the final loss, as tests/test_system.py asks
 
 
 def log(msg: str) -> None:
@@ -1919,6 +1962,324 @@ def phase_zamba_f32(torch, api, gk, lk) -> dict:
     return rec
 
 
+def phase_serve_cli(torch, api, rk, gk, obs) -> dict:
+    """16. ``python -m repro_torch.launch.serve`` through ``main(argv)``:
+    ResNet-50 (12 ``rir_matmul`` launches a batch, the checksum, the first
+    two outputs against the CPU reference) and llama3.2-3b at full width
+    and depth (``gqa_decode`` launches = layers x (gen - 1) a batch: the
+    engine's decode loop runs gen - 1 steps after prefill)."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve import build_graph
+    rec = {}
+    for label, argv in (("network", CLI_NET), ("lm", CLI_LM)):
+        obs.reset()
+        obs.enable()                         # the batch counter counts
+        kernel = rk if label == "network" else gk
+        kernel.reset_launch_count()          # the CLI's path starts here
+        t0 = time.perf_counter()
+        out = serve_cli.main(argv + ["--device", DEV])
+        secs = time.perf_counter() - t0
+        launches = kernel.launch_count()     # ... and ends here
+        batches = int(obs.counter_value("serve.batches"))
+        obs.reset()
+        config, outs = out["config"], out["outputs"]
+        if label == "network":
+            graph = build_graph(config.graph).with_batch(config.max_batch)
+            want = len(graph.layers) * batches
+            last = graph.layers[-1]
+            for o in outs:
+                if o.shape != (last.P, last.Q, last.M) or \
+                        not np.isfinite(o).all():
+                    raise AssertionError(f"serve CLI: bad output {o.shape}")
+            # the CLI's samples: default_rng(seed), as it draws them
+            rng = np.random.default_rng(config.seed)
+            xs = np.stack([rng.standard_normal(graph.input_shape()[1:])
+                           .astype(np.float32) for _ in range(2)])
+            y_ref = api.execute_network_reference(
+                graph, torch.from_numpy(xs),
+                api.init_graph_weights(list(graph.layers), seed=config.seed),
+                device="cpu")
+            checks = [check_network(f"serve CLI request {i}",
+                                    torch.from_numpy(outs[i]), y_ref[i])
+                      for i in range(2)]
+            r = {"launches": launches, "batches": batches,
+                 "checksum": float(np.sum(np.stack(outs))),
+                 "max_abs_err": max(c["max_abs_err"] for c in checks)}
+        else:
+            cfg = api.get_config(config.arch, smoke=config.smoke)
+            want = cfg.n_layers * (config.gen - 1) * batches
+            for o in outs:
+                if o.shape != (config.gen,) or o.min() < 0 or \
+                        o.max() >= cfg.vocab:
+                    raise AssertionError(f"serve CLI: bad tokens {o}")
+            r = {"launches": launches, "batches": batches,
+                 "n_layers": cfg.n_layers, "gen": config.gen,
+                 "sample_tokens": outs[0][:12].tolist()}
+        if launches != want or launches == 0:
+            raise AssertionError(f"serve CLI {label}: {launches} launches, "
+                                 f"want {want} ({batches} batches)")
+        r.update(requests=len(outs), seconds=secs)
+        rec[label] = r
+        log("[serve_cli] " + json.dumps({"mode": label, **r}))
+        del out, outs
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+    return rec
+
+
+def calibration(report, events) -> dict:
+    """The report's per-step table (measured ``exec.step`` us against the
+    plan's modeled us at 1 GHz, ``gap`` = measured / modeled, ``rel`` =
+    gap / median gap) and its spread."""
+    rep = report.build_report(events)
+    table = [{"step": r["step"], "layer": r["layer"], "runs": r["runs"],
+              "modeled_us": r["modeled_us"], "measured_us": r["measured_us"],
+              "gap": r["gap"], "rel": r["rel_gap"]} for r in rep["steps"]]
+    rels = [r["rel"] for r in table]
+    gaps = [r["gap"] for r in table]
+    return {"steps": table, "median_gap": rep["totals"]["median_gap"],
+            "rel_min": min(rels), "rel_max": max(rels),
+            "gap_spread": max(gaps) / min(gaps)}
+
+
+def phase_smokes(torch, api, rk, obs, nets) -> dict:
+    """17. ``repro_torch.serve.smoke`` and ``repro_torch.obs.smoke --graph
+    resnet50 --check-identical`` on the card, the trace through
+    ``repro_torch.obs.report --validate``, and the per-step calibration:
+    each ``exec.step``'s measured ms against the plan's modeled cycles, on
+    the smoke's one cold traced run (batch 1) and on CALIB_RUNS warm traced
+    runs of the served batch-8 plan."""
+    import contextlib
+    import io
+
+    from repro_torch.obs import report
+    from repro_torch.obs import smoke as obs_smoke
+    from repro_torch.serve import smoke as serve_smoke
+    rk.reset_launch_count()                  # the serve smoke starts
+    if serve_smoke.main(["--device", DEV]) != 0:
+        raise AssertionError("serve smoke failed")
+    serve_launches = rk.launch_count()       # ... and ends
+    obs.reset()
+    with tempfile.TemporaryDirectory(prefix="obs-smoke-") as tmp:
+        path = pathlib.Path(tmp) / "trace.jsonl"
+        rk.reset_launch_count()              # the obs smoke starts
+        rc = obs_smoke.main(["--graph", OBS_GRAPH, "--check-identical",
+                             "--out", str(path), "--device", DEV])
+        launches = rk.launch_count()         # ... and ends
+        obs.reset()
+        if rc != 0:
+            raise AssertionError(f"obs smoke exited {rc}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = report.main([str(path), "--validate"])
+        if rc != 0:
+            raise AssertionError("the obs smoke's trace fails "
+                                 "repro_torch.obs.report --validate")
+        cold = calibration(report, obs.read_trace(path))
+    # traced and untraced: one launch a plan step each
+    n = len(cold["steps"])
+    if launches != 2 * n or not n or serve_launches == 0:
+        raise AssertionError(f"obs smoke: {launches} launches for {n} "
+                             f"steps; serve smoke {serve_launches}")
+    graph, plan = nets["resnet50"]
+    weights = api.init_graph_weights(list(graph.layers), seed=0)
+    prepared = api.prepare_network(plan, graph, weights, device=DEV)
+    x = torch.randn(graph.input_shape(),
+                    generator=torch.Generator().manual_seed(4)).to(DEV)
+    prepared(x)                              # warm: allocations, first use
+    obs.reset()
+    obs.enable()
+    for _ in range(CALIB_RUNS):
+        prepared(x)
+    warm = calibration(report, obs.events())
+    obs.reset()
+    rec = {"serve_smoke_launches": serve_launches, "obs_launches": launches,
+           "cold_b1": cold, "warm_b8": warm}
+    for label in ("cold_b1", "warm_b8"):
+        for r in rec[label]["steps"]:
+            log(f"[calibration {label}] " + json.dumps(r))
+        log(f"[smokes {label}] " + json.dumps(
+            {k: v for k, v in rec[label].items() if k != "steps"}))
+    return rec
+
+
+def phase_chaos(torch, api, rk, gk, obs) -> dict:
+    """18. ``repro_torch.runtime.chaos --seed 0 --graph resnet50 --arch
+    llama3p2_3b`` on the card: every scheduled fault fires, none escapes,
+    outputs bit-identical at tier <= 1; the kernels' launches in it."""
+    from repro_torch.runtime import chaos
+    with tempfile.TemporaryDirectory(prefix="chaos-") as tmp:
+        out = pathlib.Path(tmp) / "chaos.json"
+        rk.reset_launch_count()
+        gk.reset_launch_count()              # the chaos run starts
+        rc = chaos.main(["--seed", "0", "--graph", CHAOS_GRAPH, "--arch",
+                         CHAOS_ARCH, "--device", DEV, "--report", str(out)])
+        launches = {"rir_matmul": rk.launch_count(),
+                    "gqa_decode": gk.launch_count()}   # ... and ends
+        obs.reset()
+        if rc != 0:
+            raise AssertionError(f"chaos exited {rc}")
+        rep = json.loads(out.read_text())
+    # the serve phase's two decode passes, gen - 1 steps each
+    cfg = api.get_config(CHAOS_ARCH, smoke=True)
+    want_gqa = 2 * cfg.n_layers * (CHAOS_GEN - 1)
+    if launches["rir_matmul"] == 0 or launches["gqa_decode"] != want_gqa:
+        raise AssertionError(f"chaos launches {launches}, want rir_matmul "
+                             f"> 0 and gqa_decode {want_gqa}")
+    rec = {"launches": launches, "counters": rep["counters"],
+           "tiers": {k: rep[k]["faulted_tier"] for k in ("network", "serve")},
+           "injected": {k: rep[k]["sites"] for k in
+                        ("network", "engine", "serve")}}
+    log("[chaos] " + json.dumps(rec))
+    return rec
+
+
+def _bits(t):
+    """A tensor's bit patterns, for a bit-for-bit comparison."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def phase_resume(torch, api, lk, obs) -> dict:
+    """19. The rwkv6 trainer at full width and RESUME_LAYERS layers:
+    RESUME_STEPS steps straight, then half of them with a checkpoint and
+    a resume to RESUME_STEPS in a fresh model: the final loss within
+    RESUME_REL; the checkpoint restored into a fresh model gives back
+    every bf16 parameter and f32 state bit for bit.  Each run is traced,
+    so its ``train.step`` spans give each step's seconds and the host time
+    between steps, where the save of a checkpoint blocks the loop (the
+    resumed run saves at the middle step, to be seen there)."""
+    import gc
+    import shutil
+
+    from repro_torch.launch import train as tl
+    base = ["--arch", RESUME_ARCH, "--layers", str(RESUME_LAYERS),
+            "--batch", str(RESUME_BATCH), "--seq", str(RESUME_SEQ),
+            "--log-every", "1", "--device", DEV]
+    base += ["--smoke"] if RESUME_SMOKE else []
+    half = RESUME_STEPS // 2
+
+    def run(steps, *extra):
+        """The launcher's result, its seconds, each step's seconds
+        (``step_s``), the host seconds before each step since the last
+        one ended (``gap_s``: set-up and restore before the first; a save
+        after the one before), and the seconds after the last step
+        (``tail_s``: the end-of-run save and the wait for the writes)."""
+        obs.reset()
+        obs.enable()
+        t0, us0 = time.perf_counter(), obs.now_us()
+        out = tl.train(tl.parse_args(base + ["--steps", str(steps),
+                                             *extra]))
+        us1 = obs.now_us()
+        out["seconds"] = time.perf_counter() - t0
+        spans = [e for e in obs.events()
+                 if e.get("ev") == "span" and e["name"] == "train.step"]
+        obs.reset()
+        prev = us0
+        out["step_s"], out["gap_s"] = {}, {}
+        for e in spans:
+            step = e["attrs"]["step"]
+            out["gap_s"][step] = (e["ts"] - prev) / 1e6
+            out["step_s"][step] = e["dur"] / 1e6
+            prev = e["ts"] + e["dur"]
+        out["tail_s"] = (us1 - prev) / 1e6
+        return out
+
+    def free():
+        gc.collect()
+        if DEV == "cuda":
+            torch.cuda.empty_cache()
+
+    straight = run(RESUME_STEPS)
+    cfg = straight["model"].cfg
+    if cfg.n_layers != RESUME_LAYERS:
+        raise AssertionError(f"--layers {RESUME_LAYERS} built "
+                             f"{cfg.n_layers} layers")
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "params": sum(p.numel() for p in straight["model"].params()
+                         .values()),
+           "batch": RESUME_BATCH, "seq": RESUME_SEQ,
+           "straight_losses": straight["losses"],
+           "straight_s": straight["seconds"],
+           "straight_step_s": straight["step_s"]}
+    del straight["model"], straight["opt_state"]
+    free()
+    with tempfile.TemporaryDirectory(prefix="resume-") as tmp:
+        rec["disk_free_gb"] = shutil.disk_usage(tmp).free / 1e9
+        first = run(half, "--ckpt-dir", tmp, "--ckpt-every", str(half))
+        saved = {n: p.detach().clone()
+                 for n, p in first["model"].params().items()}
+        saved_opt = first["opt_state"]
+        rec.update(first_s=first["seconds"], first_tail_s=first["tail_s"],
+                   ckpt_bytes=sum(p.stat().st_size for p in
+                                  pathlib.Path(tmp).rglob("*")
+                                  if p.is_file()))
+        del first
+        free()
+        # a fresh model from another seed: nothing matches by accident
+        fresh = api.build_model(cfg, device=DEV)
+        fresh.init(torch.Generator(device=fresh.device).manual_seed(1))
+        fresh_opt = api.adamw_init(fresh.params())
+        t0 = time.perf_counter()
+        mgr = api.CheckpointManager(tmp)
+        step = tl.restore_into(mgr, fresh, fresh_opt, cfg)
+        mgr.close()
+        rec["restore_s"] = time.perf_counter() - t0
+        if step != half or fresh_opt.step != saved_opt.step:
+            raise AssertionError(f"restored step {step}/{fresh_opt.step}, "
+                                 f"want {half}")
+        got = fresh.params()
+        bad = [n for n, p in saved.items()
+               if not torch.equal(_bits(got[n]), _bits(p))]
+        for field in ("mu", "nu", "master"):
+            own, back = getattr(saved_opt, field), getattr(fresh_opt, field)
+            bad += [f"{field}.{n}" for n, t in own.items()
+                    if not torch.equal(_bits(back[n]), _bits(t))]
+        if bad:
+            raise AssertionError(f"restore is not bit-exact: {bad[:5]}")
+        rec["bit_exact_leaves"] = len(saved) * 4
+        rec["param_dtype"] = str(next(iter(saved.values())).dtype)
+        del saved, saved_opt, fresh, fresh_opt, got
+        free()
+        lk.reset_launch_count()              # the resumed run starts
+        mid = half + half // 2
+        resumed = run(RESUME_STEPS, "--ckpt-dir", tmp, "--ckpt-every",
+                      str(mid - half))
+        launches = lk.launch_count()         # ... and ends
+        gaps = resumed["gap_s"]
+        rec.update(resumed_losses=resumed["losses"],
+                   resumed_s=resumed["seconds"],
+                   resumed_step_s=resumed["step_s"], resumed_gap_s=gaps,
+                   resumed_tail_s=resumed["tail_s"],
+                   setup_and_restore_s=gaps[half],
+                   save_block_s=gaps[mid],
+                   other_gap_s=max(gaps[s] for s in gaps
+                                   if s not in (half, mid)),
+                   scan_launches=launches)
+        if resumed["start"] != half:
+            raise AssertionError(f"resumed at {resumed['start']}")
+        del resumed
+        free()
+    want = 2 * cfg.n_layers * (RESUME_STEPS - half)   # forward + remat
+    if launches != want:
+        raise AssertionError(f"resumed run: {launches} linear_scan "
+                             f"launches, want {want}")
+    a, b = rec["straight_losses"], rec["resumed_losses"]
+    last = RESUME_STEPS - 1
+    rec["max_abs_dloss"] = max(abs(a[s] - b[s])
+                               for s in range(half, RESUME_STEPS))
+    rec["final_rel"] = abs(a[last] - b[last]) / abs(a[last])
+    log("[resume] " + json.dumps(rec))
+    if not rec["final_rel"] <= RESUME_REL:
+        raise AssertionError(f"resumed final loss {b[last]} vs straight "
+                             f"{a[last]}: rel {rec['final_rel']:.3e}")
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -1977,6 +2338,12 @@ def main(argv=None) -> int:
                                 api, ops, ref, gk, lk, obs)
     record["zamba_f32"] = run("zamba_f32", phase_zamba_f32, torch, api, gk,
                               lk)
+    record["serve_cli"] = run("serve_cli", phase_serve_cli, torch, api, rk,
+                              gk, obs)
+    record["smokes"] = run("smokes", phase_smokes, torch, api, rk, obs, nets)
+    record["chaos"] = run("chaos", phase_chaos, torch, api, rk, gk, obs)
+    record["resume"] = run("resume", phase_resume, torch, api, lk,
+                           obs)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]

@@ -6,7 +6,8 @@ kernel, the dense LMs (their decode attention through the hand-written
 ``gqa_decode`` kernel), rwkv6 and the zamba2 hybrid (their chunked scans
 through the hand-written ``linear_scan`` kernel), serving of all of them,
 and training on one device (AdamW, the WSD schedule, the synthetic data
-stream).  Entry points
+stream, checkpoints in ``repro``'s format and the restart supervisor).
+Entry points
 take ``device="cuda"`` by default and raise where CUDA is absent;
 ``device="cpu"`` runs the plain PyTorch path.
 The function wrappers take keyword-only arguments beyond their primary
@@ -39,6 +40,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.core.layout import Layout
 from repro_torch.core.layoutloop import EvalConfig
@@ -50,16 +52,20 @@ from repro_torch.optim import adamw_init, adamw_update, wsd_schedule
 from repro_torch.plan import (ExecutionPlan, LayerGraph, PlanCache,
                               PlannerOptions, PreparedNetwork, ResolvedPlan,
                               execute_network_reference, fold_batchnorm,
-                              from_layers, mobilenet_v3_graph, resnet50_graph,
+                              from_arch_config, from_layers,
+                              mobilenet_v3_graph, resnet50_graph,
                               step_kernel_blocks)
 from repro_torch.plan import execute_network as _execute_network
 from repro_torch.plan import plan_network as _plan_network
 from repro_torch.plan import prepare_network as _prepare_network
 from repro_torch.plan import resolve_plan as _resolve_plan
 from repro_torch.plan import upgrade_plan as _upgrade_plan
+from repro_torch.runtime import TrainSupervisor
 from repro_torch.serve import (QueueFullError, ServeConfig, ServeEngine,
                                ServeTicket)
-from repro_torch.weights import to_torch_lm_params, to_torch_weights
+from repro_torch.weights import (to_repro_adamw_state, to_repro_lm_params,
+                                 to_torch_adamw_state, to_torch_lm_params,
+                                 to_torch_weights)
 
 
 def plan_network(graph: LayerGraph, cfg: EvalConfig, *,
@@ -110,7 +116,7 @@ __all__ = [
     # planning
     "EvalConfig", "Layout", "LayerGraph", "PlannerOptions", "ExecutionPlan",
     "PlanCache", "ResolvedPlan",
-    "from_layers", "resnet50_graph", "mobilenet_v3_graph",
+    "from_layers", "resnet50_graph", "mobilenet_v3_graph", "from_arch_config",
     "plan_network", "resolve_plan", "upgrade_plan",
     # execution
     "PreparedNetwork", "prepare_network", "execute_network",
@@ -118,9 +124,11 @@ __all__ = [
     "init_graph_weights", "to_torch_weights",
     # models
     "ARCH_IDS", "get_config", "build_model", "to_torch_lm_params",
+    "to_repro_lm_params", "to_torch_adamw_state", "to_repro_adamw_state",
     # serving
     "ServeEngine", "ServeConfig", "ServeTicket", "QueueFullError",
     # training
     "DataConfig", "SyntheticLMStream", "make_stream", "adamw_init",
     "adamw_update", "wsd_schedule", "make_train_step",
+    "CheckpointManager", "TrainSupervisor",
 ]

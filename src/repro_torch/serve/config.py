@@ -1,14 +1,17 @@
 """``ServeConfig`` — one frozen dataclass describing a serving deployment.
 
-The port's copy of ``repro.serve.config``, shared by the engine
-(``ServeEngine(config)``), ``chip_smoke.py`` and the tests, with the JAX
-package's ``use_pallas`` switch replaced by ``device`` ("cuda" by default,
-"cpu" for the plain path).  ``model_axis`` comes with the mesh (ROADMAP
-Queue 1 item 10), and the CLI glue (``add_args`` / ``from_args``) with the
-port of ``launch/serve.py``.
+The port's copy of ``repro.serve.config``, shared by the CLI
+(``ServeConfig.add_args``/``from_args``, behind ``python -m
+repro_torch.launch.serve``), the engine (``ServeEngine(config)``),
+``chip_smoke.py`` and the tests, with the JAX package's ``use_pallas``
+switch replaced by ``device`` ("cuda" by default, "cpu" for the plain
+path; the CLI's ``--device``).  ``model_axis`` comes with the mesh
+(ROADMAP Queue 1 item 10): the CLI takes ``--model-axis`` and raises
+``NotImplementedError`` above 1.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 from typing import Optional, Tuple
 
@@ -83,3 +86,54 @@ class ServeConfig:
         """Requests one assembled batch may carry."""
         return self.max_batch if self.assemble_max is None \
             else self.assemble_max
+
+    # -------------------------------------------------------------- CLI glue
+    @staticmethod
+    def add_args(ap: argparse.ArgumentParser) -> None:
+        """Install the serving flags (``repro.serve.config``'s, plus
+        ``--device``) on an argparse parser."""
+        ap.add_argument("--arch", default=None,
+                        help="LM arch id (default llama3p2_3b unless "
+                        "--graph is given)")
+        ap.add_argument("--graph", default=None, choices=GRAPH_NAMES,
+                        help="serve a planned conv network instead of an LM")
+        ap.add_argument("--smoke", action="store_true")
+        ap.add_argument("--batch", type=int, default=4, dest="max_batch",
+                        help="plan batch extent = dynamic-batching ceiling")
+        ap.add_argument("--prompt-len", type=int, default=32)
+        ap.add_argument("--gen", type=int, default=16)
+        ap.add_argument("--model-axis", type=int, default=1)
+        ap.add_argument("--plan", default=None, metavar="PATH",
+                        help="execution-plan artifact: load it if it "
+                        "exists, else plan and save it there")
+        ap.add_argument("--plan-deadline", type=float, default=30.0,
+                        help="seconds plan resolution may spend before "
+                        "degrading straight to a fixed-layout plan")
+        ap.add_argument("--workers", type=int, default=1,
+                        help="batch-assembly worker threads")
+        ap.add_argument("--queue-capacity", type=int, default=64,
+                        help="bounded request queue size (admission limit)")
+        ap.add_argument("--log-level", default=None,
+                        choices=["debug", "info", "warning", "error"],
+                        help="console log threshold "
+                        "(default: REPRO_LOG or info)")
+        ap.add_argument("--device", default="cuda",
+                        help="cuda (the default; raises without CUDA) or cpu")
+
+    @staticmethod
+    def from_args(args: argparse.Namespace) -> "ServeConfig":
+        """Build the config from parsed CLI args (LM mode by default)."""
+        if args.model_axis > 1:
+            raise NotImplementedError("--model-axis > 1: the mesh is not "
+                                      "ported yet: ROADMAP.md Queue 1 "
+                                      "item 10")
+        arch = args.arch
+        if arch is None and args.graph is None:
+            arch = "llama3p2_3b"
+        return ServeConfig(
+            arch=arch, graph=args.graph, smoke=args.smoke,
+            max_batch=args.max_batch, prompt_len=args.prompt_len,
+            gen=args.gen, plan=args.plan,
+            plan_deadline=args.plan_deadline, workers=args.workers,
+            queue_capacity=args.queue_capacity, device=args.device,
+            log_level=args.log_level)

@@ -262,7 +262,11 @@ for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
             "repro_torch.launch.train", "repro_torch.core.birrd",
             "repro_torch.core.rir", "repro_torch.kernels.birrd_reduce",
             "repro_torch.models.hybrid", "repro_torch.launch.coswitch",
-            "repro_torch.configs.zamba2_2p7b"):
+            "repro_torch.configs.zamba2_2p7b", "repro_torch.checkpoint",
+            "repro_torch.checkpoint.store", "repro_torch.runtime.chaos",
+            "repro_torch.runtime.fault_tolerance", "repro_torch.launch.serve",
+            "repro_torch.obs.report", "repro_torch.obs.smoke",
+            "repro_torch.serve.smoke", "repro_torch.core.accel_models"):
     assert mod in names and mod in sys.modules, mod
 """
 
