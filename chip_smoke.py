@@ -121,7 +121,8 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     launches a batch, two outputs against the CPU reference) and with
     ``--arch llama3p2_3b --batch 8 --prompt-len 128 --gen 16`` (full width
     and depth, random weights; 28 x 15 ``gqa_decode`` launches a batch:
-    the engine's decode loop runs gen - 1 steps after prefill).
+    the engine's decode loop runs gen - 1 steps after prefill), and with
+    ``--arch whisper_small --batch 8`` (2 x 12 x 15 launches a batch).
 17. The smokes and the report: ``repro_torch.serve.smoke`` and
     ``repro_torch.obs.smoke --graph resnet50 --check-identical`` on the
     card, the trace through ``repro_torch.obs.report --validate``, and
@@ -141,6 +142,27 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     bytes); the checkpoint restored into a fresh model gives back every
     bf16 parameter and f32 state bit for bit.  The checkpoints go to a
     temporary directory, removed after.
+20. ``gqa_decode`` at the MoE and whisper shapes: G 6 (dbrx, 48/8), G 5
+    (llama4-scout, 40/8) and G 1 at D 64 (whisper, 12/12), each at S 1500
+    (not a multiple of the split) with full and ragged rows, f32 and bf16,
+    against the plain version; whisper's cross-attention shape (B 8, S
+    1500) and dbrx's decode shape (B 8, S 144) timed as in 7, beside SDPA.
+21. whisper-small served at full width and depth (12 + 12 layers, random
+    bf16 weights from a seed, zero stub frames): ``max_batch=8``, prompt
+    64, gen 32, 16 requests, 31 x 24 = 744 ``gqa_decode`` launches a
+    batch; one batch profiled.  Then the whole model in f32 (TF32 off),
+    card against CPU: prefill and 3 teacher-forced decode steps at rtol
+    1e-4 / atol 1e-3 and within 2e-4 x max |logit|.
+22. dbrx-132b, then llama4-scout, at full width and 4 layers (bf16, random
+    weights from a seed; each freed before the next): prefill at batch 8 x
+    128 and 15 greedy decode steps through ``build_model`` -> ``prefill``
+    -> ``decode_step``, 4 ``gqa_decode`` launches a step; each prefill
+    layer's capacity and dropped assignments; 4 teacher-forced bf16 steps
+    against the same model with the plain ``ref.gqa_decode`` swapped in
+    (rows whose routing flips reported, not held); peak memory.  Then the
+    dispatch in f32 at SMOKE widths, card against CPU: identical routing
+    wherever the router's k-th and (k+1)-th logits are more than 1e-5
+    apart (near-tie flips reported), logits at 2e-4.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -284,6 +306,44 @@ RESUME_BATCH = 8
 RESUME_SEQ = 1024
 RESUME_STEPS = 8
 RESUME_REL = 1e-4               # the final loss, as tests/test_system.py asks
+# phases 20-22: the MoE family and the whisper encoder-decoder.  20:
+# gqa_decode at their decode shapes, each at S = 1500 (whisper's encoder
+# frames, not a multiple of the kernel's split) in full and ragged rows
+GQA_NEW_SHAPES = {"dbrx G 6": (48, 8, 128), "llama4 G 5": (40, 8, 128),
+                  "whisper G 1, D 64": (12, 12, 64)}
+GQA_NEW_S = 1500
+# 21: whisper-small at full width and depth served, random weights from
+# WHISPER_SEED; every decode step launches gqa_decode twice a layer
+WHISPER_ARCH = "whisper_small"
+WHISPER_SMOKE = False
+WHISPER_SEED = 0
+WHISPER_BATCH = 8
+WHISPER_PROMPT = 64
+WHISPER_GEN = 32
+WHISPER_REQUESTS = 16
+WHISPER_SEQ_REQUESTS = 2
+# the whole model in f32 (TF32 off), card against CPU: prefill and 3
+# teacher-forced decode steps at the stated tolerance, and max |err| within
+# WHISPER_F32_REL x max |logit| (the logits are ~1e-2 at the 0.02 init)
+WHISPER_F32 = {"batch": 2, "prompt": 16, "steps": 3}
+WHISPER_F32_TOL = dict(rtol=1e-4, atol=1e-3)
+WHISPER_F32_REL = 2e-4
+CLI_WHISPER = ["--arch", "whisper_small", "--batch", "8"]
+# 22: dbrx-132b and llama4-scout at full width and MOE_LAYERS layers (no
+# MoE config fits one card whole), one after the other
+MOE_ARCHS = ("dbrx_132b", "llama4_scout_17b")
+MOE_SMOKE = False
+MOE_LAYERS = 4
+MOE_SEED = 0
+MOE_BATCH = 8
+MOE_PROMPT = 128
+MOE_GEN = 16
+# the dispatch logic in f32 at SMOKE widths (2 layers), card against CPU,
+# weights at 0.2 so the router is far from uniform; routing must agree
+# wherever the k-th and (k+1)-th router logits differ by more than
+# MOE_ROUTE_MARGIN, and flips inside it are reported
+MOE_F32 = {"batch": 8, "prompt": 32, "steps": 4, "scale": 0.2}
+MOE_ROUTE_MARGIN = 1e-5
 
 
 def log(msg: str) -> None:
@@ -405,6 +465,12 @@ def gqa_bound(B, Hq, Hkv, D, n_valid) -> dict:
     flops = 4.0 * n_valid * Hq * D
     return {**bound(nbytes, flops, BF16_PEAK_FLOPS),
             "mbytes": nbytes / 1e6, "mflop": flops / 1e6}
+
+
+def gqa_per_step(cfg) -> int:
+    """``gqa_decode`` launches a decode step: one a layer, two for an
+    encoder-decoder (self- and cross-attention)."""
+    return cfg.n_layers * (2 if cfg.family == "encdec" else 1)
 
 
 def cycling(fn, n: int):
@@ -1965,9 +2031,10 @@ def phase_zamba_f32(torch, api, gk, lk) -> dict:
 def phase_serve_cli(torch, api, rk, gk, obs) -> dict:
     """16. ``python -m repro_torch.launch.serve`` through ``main(argv)``:
     ResNet-50 (12 ``rir_matmul`` launches a batch, the checksum, the first
-    two outputs against the CPU reference) and llama3.2-3b at full width
-    and depth (``gqa_decode`` launches = layers x (gen - 1) a batch: the
-    engine's decode loop runs gen - 1 steps after prefill)."""
+    two outputs against the CPU reference), llama3.2-3b and whisper-small
+    at full width and depth (``gqa_decode`` launches = the launches of a
+    decode step x (gen - 1) a batch: the engine's decode loop runs gen - 1
+    steps after prefill)."""
     import gc
 
     import numpy as np
@@ -1975,7 +2042,8 @@ def phase_serve_cli(torch, api, rk, gk, obs) -> dict:
     from repro_torch.launch import serve as serve_cli
     from repro_torch.serve import build_graph
     rec = {}
-    for label, argv in (("network", CLI_NET), ("lm", CLI_LM)):
+    for label, argv in (("network", CLI_NET), ("lm", CLI_LM),
+                        ("whisper", CLI_WHISPER)):
         obs.reset()
         obs.enable()                         # the batch counter counts
         kernel = rk if label == "network" else gk
@@ -2011,7 +2079,7 @@ def phase_serve_cli(torch, api, rk, gk, obs) -> dict:
                  "max_abs_err": max(c["max_abs_err"] for c in checks)}
         else:
             cfg = api.get_config(config.arch, smoke=config.smoke)
-            want = cfg.n_layers * (config.gen - 1) * batches
+            want = gqa_per_step(cfg) * (config.gen - 1) * batches
             for o in outs:
                 if o.shape != (config.gen,) or o.min() < 0 or \
                         o.max() >= cfg.vocab:
@@ -2280,6 +2348,481 @@ def phase_resume(torch, api, lk, obs) -> dict:
     return rec
 
 
+# ------------------------------------------ phases 20-22: MoE and whisper
+def phase_gqa_new(torch, api, ops, ref, gk) -> dict:
+    """20. ``gqa_decode`` at the new families' shapes: G 6 (dbrx), G 5
+    (llama4-scout) and G 1 at D 64 (whisper), each at S = 1500 with every
+    row at full length and at ragged lengths, f32 and bf16, against the
+    plain version; then timed (``gqa_times``) at whisper's cross-attention
+    shape (B 8, 12/12, D 64, S 1500, full rows; one cache a decoder layer)
+    and at dbrx's decode shape (B 8, 48/8, D 128, S 144; one cache a
+    layer of the full 40)."""
+    gen = torch.Generator(device="cpu").manual_seed(80)
+    S = GQA_NEW_S
+    worst, n = {"f32": 0.0, "bf16": 0.0}, 0
+    for label, (hq, hkv, d) in GQA_NEW_SHAPES.items():
+        for rows, lens in (("full", [S] * 8),
+                           ("ragged", [1, 255, 256, 257, 700, 1023, 1499,
+                                       1500])):
+            for dt, tdt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+                q = torch.randn(8, hq, d, generator=gen).to(DEV, tdt)
+                k = torch.randn(8, S, hkv, d, generator=gen).to(DEV, tdt)
+                v = torch.randn(8, S, hkv, d, generator=gen).to(DEV, tdt)
+                ln = torch.tensor(lens, dtype=torch.int32).to(DEV)
+                y = ops.gqa_decode(q, k, v, ln)
+                name = f"gqa {label} S={S} {rows} {dt}"
+                if y.dtype != tdt or y.shape != q.shape:
+                    raise AssertionError(f"{name}: {y.dtype} {y.shape}")
+                err = check_close(name, y, ref.gqa_decode(q, k, v, ln),
+                                  GQA_TOL[dt], GQA_TOL[dt])
+                worst[dt] = max(worst[dt], err)
+                n += 1
+    log(f"[gqa-new] {n} cases at S={S} within tolerance; worst |err| f32 "
+        f"{worst['f32']:.3e}, bf16 {worst['bf16']:.3e}")
+    rec = {"cases": n, "worst": worst}
+    wc = api.get_config(WHISPER_ARCH, smoke=WHISPER_SMOKE)
+    rec["whisper_cross"] = gqa_times(
+        torch, ops, ref, [gk.KERNEL], WHISPER_BATCH, wc.n_heads,
+        wc.n_kv_heads, wc.head_dim, wc.enc_frames,
+        [wc.enc_frames] * WHISPER_BATCH, wc.n_layers, 81)
+    log("[gqa-new] whisper cross shape " + json.dumps(rec["whisper_cross"]))
+    dc = api.get_config(MOE_ARCHS[0], smoke=MOE_SMOKE)
+    S = MOE_PROMPT + MOE_GEN
+    lens = list(range(MOE_PROMPT, S, MOE_GEN // MOE_BATCH))
+    rec["dbrx_decode"] = gqa_times(
+        torch, ops, ref, [gk.KERNEL], MOE_BATCH, dc.n_heads, dc.n_kv_heads,
+        dc.head_dim, S, lens, dc.n_layers, 82)
+    log("[gqa-new] dbrx decode shape " + json.dumps(rec["dbrx_decode"]))
+    return rec
+
+
+def phase_whisper_serve(torch, api, gk, obs) -> dict:
+    """21. whisper-small served at full width and depth: 16 requests at
+    ``max_batch=8``, prompt 64, gen 32; (gen - 1) x 24 ``gqa_decode``
+    launches a batch (12 self-, 12 cross-attention); one batch under
+    ``torch.profiler`` for the device's busy share, its only ``gqa``
+    device kernel the decode kernel; the encoder alone timed over a
+    batch of stub frames (most of a prefill); 2 requests again one a
+    batch, identical tokens (whisper's rows are independent, unlike an
+    MoE's)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    cfg = api.get_config(WHISPER_ARCH, smoke=WHISPER_SMOKE)
+    rng = np.random.default_rng(83)
+    reqs = [rng.integers(0, cfg.vocab, WHISPER_PROMPT).astype(np.int32)
+            for _ in range(WHISPER_REQUESTS)]
+    kw = dict(arch=WHISPER_ARCH, smoke=WHISPER_SMOKE,
+              max_batch=WHISPER_BATCH, prompt_len=WHISPER_PROMPT,
+              gen=WHISPER_GEN, seed=WHISPER_SEED, device=DEV)
+    per_batch = (WHISPER_GEN - 1) * gqa_per_step(cfg)
+    t0 = time.perf_counter()
+    eng = api.ServeEngine(api.ServeConfig(workers=1, **kw))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in eng.model.params().values())
+    rec = {"arch": cfg.name, "enc_layers": cfg.enc_layers,
+           "n_layers": cfg.n_layers, "enc_frames": cfg.enc_frames,
+           "params": n_params, "init_s": init_s,
+           "requests": WHISPER_REQUESTS, "batch": WHISPER_BATCH,
+           "prompt_len": WHISPER_PROMPT, "gen": WHISPER_GEN}
+    with eng:
+        eng.serve(reqs[:1])                        # warm the path
+        obs.reset()
+        obs.enable()
+        gk.reset_launch_count()                    # the whisper path starts
+        t0 = time.perf_counter()
+        outs = eng.serve(reqs)
+        secs = time.perf_counter() - t0
+        launches = gk.launch_count()               # ... and ends here
+        batches = int(obs.counter_value("serve.batches"))
+        prefill = obs.hist_stats("serve.prefill_ms")
+        decode = obs.hist_stats("serve.decode_ms_per_token")
+        obs.reset()                                # profile untraced
+        before = gk.launch_count()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.serve(reqs[:WHISPER_BATCH])
+            wall_s = time.perf_counter() - t0
+        prof_launches = gk.launch_count() - before
+    # the encoder alone over a batch of zero stub frames: prefill's share
+    frames = torch.zeros((WHISPER_BATCH, cfg.enc_frames, cfg.d_model),
+                         dtype=getattr(torch, cfg.dtype), device=DEV)
+    with torch.inference_mode():
+        eng.model.encode(frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            eng.model.encode(frames)
+        torch.cuda.synchronize()
+        encode_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del frames
+    if launches != per_batch * batches or launches == 0:
+        raise AssertionError(f"whisper serve: {launches} gqa_decode "
+                             f"launches for {batches} batches ({per_batch}"
+                             f" a batch)")
+    by_name, busy_ms = device_time_by_kernel(prof)
+    del prof
+    gqa_kernels = [[name, n] for _, name, n in by_name if "gqa" in name]
+    if len(gqa_kernels) != 1 or gk.KERNEL not in gqa_kernels[0][0] \
+            or not 0 < gqa_kernels[0][1] <= prof_launches:
+        raise AssertionError(f"whisper serve: {prof_launches} gqa_decode "
+                             f"launches in the profiled batch, device "
+                             f"kernels {gqa_kernels}")
+    for o in outs:
+        if o.shape != (WHISPER_GEN,) or o.min() < 0 or o.max() >= cfg.vocab:
+            raise AssertionError(f"whisper serve: bad tokens {o.shape}")
+    rec.update({
+        "gqa_launches": launches, "batches": batches,
+        "gqa_launches_per_batch": launches / batches,
+        "profiled_gqa_launches": prof_launches, "seconds": secs,
+        "requests_per_s": WHISPER_REQUESTS / secs,
+        "generated_tokens_per_s": WHISPER_REQUESTS * WHISPER_GEN / secs,
+        "prefill_ms": prefill, "encode_ms": encode_ms,
+        "decode_ms_per_token": decode,
+        "profiled_batch_wall_ms": wall_s * 1e3,
+        "device_busy_ms": busy_ms,
+        "device_busy_share": busy_ms / (wall_s * 1e3),
+        "device_ops": sum(n for _, _, n in by_name),
+        "top_device_ms": [[name[:60], round(us / 1e3, 4), n]
+                          for us, name, n in by_name[:12]],
+        "sample_tokens": outs[0][:12].tolist()})
+    log("[whisper] " + json.dumps(rec))
+    # no row sees another: the same requests one a batch, identical tokens
+    with api.ServeEngine(api.ServeConfig(workers=1, assemble_max=1, **kw),
+                         weights=eng.model.params()) as seq:
+        seq_outs = seq.serve(reqs[:WHISPER_SEQ_REQUESTS])
+    for i, (a, b) in enumerate(zip(outs, seq_outs)):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"whisper request {i}: batched != "
+                                 f"sequential")
+    log(f"[whisper] {WHISPER_SEQ_REQUESTS} requests served one a batch: "
+        f"tokens identical to the batched run")
+    del eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_whisper_f32(torch, api, gk) -> dict:
+    """21 (cont.). whisper-small at full width and depth in f32 (TF32 off;
+    0.84 GB): the same weights on the card and on the CPU (plain path),
+    ``prefill`` over zero stub frames, then WHISPER_F32["steps"]
+    teacher-forced decode steps (the CPU's greedy tokens); the logits at
+    WHISPER_F32_TOL and within WHISPER_F32_REL x max |logit|."""
+    import gc
+
+    import numpy as np
+    gc.collect()
+    torch.cuda.empty_cache()
+    c = WHISPER_F32
+    cfg = dataclasses.replace(api.get_config(WHISPER_ARCH,
+                                             smoke=WHISPER_SMOKE),
+                              dtype="float32")
+    cpu = api.build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(84))
+    dev = api.build_model(cfg, device=DEV).load_params(cpu.params())
+    toks = torch.from_numpy(np.random.default_rng(85).integers(
+        0, cfg.vocab, size=(c["batch"], c["prompt"])))
+    S = c["prompt"] + c["steps"]
+    worst, scale, launches = 0.0, 0.0, 0
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        c_cpu, l_cpu = cpu.prefill(toks, S)
+        cpu_s = time.perf_counter() - t0
+        c_dev, l_dev = dev.prefill(toks.to(DEV), S)
+        for step in range(c["steps"] + 1):
+            if step:
+                tok = torch.argmax(l_cpu, dim=-1)
+                c_cpu, l_cpu = cpu.decode_step(c_cpu, tok)
+                before = gk.launch_count()
+                c_dev, l_dev = dev.decode_step(c_dev, tok.to(DEV))
+                launches += gk.launch_count() - before
+            got = l_dev.cpu()
+            worst = max(worst, check_close(f"whisper f32 step {step}", got,
+                                           l_cpu, **WHISPER_F32_TOL))
+            scale = max(scale, float(l_cpu.abs().max()))
+    rec = {**c, "enc_layers": cfg.enc_layers, "n_layers": cfg.n_layers,
+           "max_abs_err": worst, "ref_max_abs": scale, "ratio": worst / scale,
+           "limit": WHISPER_F32_REL, **WHISPER_F32_TOL,
+           "gqa_launches": launches, "cpu_prefill_s": cpu_s}
+    log("[whisper-f32] " + json.dumps(rec))
+    if launches != c["steps"] * gqa_per_step(cfg):
+        raise AssertionError(f"whisper f32: {launches} gqa_decode launches")
+    if not worst <= WHISPER_F32_REL * scale:
+        raise AssertionError(f"whisper f32: max |err| {worst:.3e} beyond "
+                             f"{WHISPER_F32_REL} x {scale:.3e}")
+    del cpu, dev, c_cpu, c_dev
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+class MoeRecorder:
+    """Wraps ``lm.moe_apply`` while in a ``with``: each call's capacity C,
+    its per-expert counts and dropped assignments (from the router on the
+    block's inputs, recomputed), and its top-k ids and router logits."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.calls = []
+
+    def __enter__(self):
+        from repro_torch.models import blocks, lm
+        self.lm, self.real = lm, lm.moe_apply
+
+        def recorded(cfg, p, x):
+            _, logits, (_, idx) = blocks.moe_route(cfg, p, x)
+            N = x.shape[0] * x.shape[1]
+            C = blocks.moe_capacity(cfg, N)
+            counts = self.torch.bincount(idx.reshape(-1),
+                                         minlength=cfg.n_experts)
+            self.calls.append({
+                "N": N, "C": C,
+                "dropped": int(self.torch.clamp(counts - C, min=0).sum()),
+                "max_load": int(counts.max()), "idx": idx.cpu(),
+                "logits": logits.cpu()})
+            return self.real(cfg, p, x)
+
+        lm.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.lm.moe_apply = self.real
+        return False
+
+
+def route_compare(torch, want, got, k: int) -> dict:
+    """Routing of two runs call by call: the (token, k) ids must agree
+    wherever the k-th and (k+1)-th router logits of ``want`` are more than
+    MOE_ROUTE_MARGIN apart; the flips inside the margin are counted."""
+    flips = near = 0
+    for a, b in zip(want, got):
+        srt = torch.sort(a["logits"], dim=-1, descending=True).values
+        margin = srt[:, k - 1] - srt[:, min(k, srt.shape[1] - 1)]
+        clear = margin > MOE_ROUTE_MARGIN
+        if k == srt.shape[1]:
+            clear[:] = True
+        differ = (a["idx"] != b["idx"]).any(dim=-1)
+        if bool((differ & clear).any()):
+            raise AssertionError(f"routing differs on "
+                                 f"{int((differ & clear).sum())} tokens "
+                                 f"whose router margin is over "
+                                 f"{MOE_ROUTE_MARGIN}")
+        flips += int(differ.sum())
+        near += int((~clear).sum())
+    return {"calls": len(want), "near_ties": near, "flips": flips}
+
+
+def phase_moe(torch, api, ops, ref, gk) -> dict:
+    """22. dbrx-132b, then llama4-scout, at full width and MOE_LAYERS
+    layers (bf16, random weights from MOE_SEED), through ``build_model`` ->
+    ``prefill`` -> ``decode_step`` (the calls the engine's LM backend
+    makes): batch 8, prompt 128, then gen - 1 greedy decode steps, 4
+    ``gqa_decode`` launches a step; each prefill layer's capacity C and
+    dropped assignments; LM_TF_STEPS teacher-forced decode steps under
+    ``torch.profiler`` (the device's busy share), then held in bf16
+    against the same model with the plain ``ref.gqa_decode`` in the
+    kernel's place (rows whose routing flips are reported, not held);
+    peak device memory.  Then the dispatch logic in f32 at SMOKE
+    widths, card against CPU.  Each model is freed before the next."""
+    import gc
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    rec = {}
+    for arch in MOE_ARCHS:
+        cfg = dataclasses.replace(api.get_config(arch, smoke=MOE_SMOKE),
+                                  n_layers=MOE_LAYERS)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = api.build_model(cfg, device=DEV).init(
+            torch.Generator(device=DEV).manual_seed(MOE_SEED))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(p.numel() for p in model.params().values())
+        toks = torch.from_numpy(np.random.default_rng(86).integers(
+            0, cfg.vocab, size=(MOE_BATCH, MOE_PROMPT))).to(DEV)
+        S = MOE_PROMPT + MOE_GEN
+        r = {"arch": cfg.name, "n_layers": cfg.n_layers,
+             "full_n_layers": api.get_config(arch, smoke=MOE_SMOKE).n_layers,
+             "params": n_params, "param_gb": sum(
+                 p.numel() * p.element_size()
+                 for p in model.params().values()) / 1e9,
+             "n_experts": cfg.n_experts, "top_k": cfg.top_k,
+             "shared_expert": cfg.shared_expert, "init_s": init_s,
+             "batch": MOE_BATCH, "prompt_len": MOE_PROMPT, "gen": MOE_GEN}
+        with torch.inference_mode():
+            model.prefill(toks, S)                 # warm the path
+            torch.cuda.synchronize()
+            gk.reset_launch_count()                # the MoE path starts
+            t0 = time.perf_counter()
+            cache, logits = model.prefill(toks, S)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            tok = torch.argmax(logits, dim=-1)
+            out = [tok]
+            t0 = time.perf_counter()
+            for _ in range(MOE_GEN - 1):
+                cache, logits = model.decode_step(cache, tok)
+                tok = torch.argmax(logits, dim=-1)
+                out.append(tok)
+            torch.cuda.synchronize()
+            decode_s = time.perf_counter() - t0
+            launches = gk.launch_count()           # ... and ends here
+            served = torch.stack(out, dim=1)
+            del cache
+            with MoeRecorder(torch) as prefill_rec:
+                cache, _ = model.prefill(toks, S)
+            # teacher-forced: the served tokens fed to the kernel's decode
+            # and, from a copy of the same cache, to the plain version's;
+            # first the kernel's steps once more under the profiler
+            saved = {k: v.clone() for k, v in cache["layers"].items()}
+            length0 = cache["length"].clone()
+
+            def restore():
+                for k, v in saved.items():
+                    cache["layers"][k].copy_(v)
+                cache["length"].copy_(length0)
+
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for j in range(LM_TF_STEPS):
+                    model.decode_step(cache, served[:, j])
+                torch.cuda.synchronize()
+                prof_wall_s = time.perf_counter() - t0
+            restore()
+            runs = {}
+            for label in ("kernel", "plain"):
+                if label == "plain":
+                    real = ops.gqa_decode
+                    ops.gqa_decode = ref.gqa_decode
+                    restore()
+                try:
+                    with MoeRecorder(torch) as routed:
+                        steps = []
+                        for j in range(LM_TF_STEPS):
+                            cache, lg = model.decode_step(cache,
+                                                          served[:, j])
+                            steps.append(lg.float())
+                finally:
+                    if label == "plain":
+                        ops.gqa_decode = real
+                runs[label] = (torch.stack(steps, dim=1), routed.calls)
+        by_name, busy_ms = device_time_by_kernel(prof)
+        del prof
+        r["profiled_decode"] = {
+            "steps": LM_TF_STEPS, "wall_ms": prof_wall_s * 1e3,
+            "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / (prof_wall_s * 1e3),
+            "device_ops": sum(n for _, _, n in by_name),
+            "top_device_ms": [[name[:60], round(us / 1e3, 4), n]
+                              for us, name, n in by_name[:8]]}
+        want, got = runs["plain"][0], runs["kernel"][0]
+        # a row whose routing differs in a step keeps its own path from
+        # there: report it, hold the rest
+        flipped = torch.zeros(MOE_BATCH, dtype=torch.bool)
+        for a, b in zip(runs["plain"][1], runs["kernel"][1]):
+            flipped |= (a["idx"] != b["idx"]).any(dim=-1)
+        keep = (~flipped).to(want.device)
+        err = max_err(got[keep], want[keep]) if bool(keep.any()) else 0.0
+        scale = float(want.abs().max())
+        r["teacher_forced"] = {
+            "steps": LM_TF_STEPS, "max_abs_err": err, "ref_max_abs": scale,
+            "ratio": err / scale, "limit": LM_TF_REL,
+            "rows_with_routing_flips": int(flipped.sum()),
+            "rows_flipped_max_abs_err": max_err(got[~keep], want[~keep])
+            if bool(flipped.any()) else 0.0}
+        if launches != (MOE_GEN - 1) * cfg.n_layers:
+            raise AssertionError(f"{arch}: {launches} gqa_decode launches "
+                                 f"for {MOE_GEN - 1} decode steps")
+        if not err <= LM_TF_REL * scale:
+            raise AssertionError(f"{arch} teacher-forced: kernel vs plain "
+                                 f"max |err| {err:.3e} beyond {LM_TF_REL} "
+                                 f"x {scale:.3e}")
+        if not torch.isfinite(served.float()).all() or \
+                served.min() < 0 or served.max() >= cfg.vocab:
+            raise AssertionError(f"{arch}: bad served tokens")
+        r.update({
+            "gqa_launches": launches,
+            "gqa_launches_per_step": launches / (MOE_GEN - 1),
+            "prefill_ms": prefill_s * 1e3,
+            "decode_ms_per_token": decode_s * 1e3 / (MOE_GEN - 1),
+            "generated_tokens_per_s": MOE_BATCH * MOE_GEN
+            / (prefill_s + decode_s),
+            "prefill_layers": [{k: c[k] for k in ("N", "C", "dropped",
+                                                  "max_load")}
+                               for c in prefill_rec.calls],
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "sample_tokens": served[0, :12].tolist()})
+        log(f"[moe {arch}] " + json.dumps(r))
+        del model, cache, saved, runs, prefill_rec
+        gc.collect()
+        torch.cuda.empty_cache()
+        r["f32"] = moe_f32(torch, api, gk, arch)
+        rec[arch] = r
+    return rec
+
+
+def moe_f32(torch, api, gk, arch) -> dict:
+    """The dispatch logic in f32 (TF32 off) at SMOKE widths: the same
+    weights (at MOE_F32["scale"]) on the card and on the CPU, prefill and
+    MOE_F32["steps"] teacher-forced decode steps (the CPU's greedy
+    tokens); identical routing outside MOE_ROUTE_MARGIN, and the logits
+    within LM_F32_TOL wherever no routing flipped."""
+    import numpy as np
+    c = MOE_F32
+    cfg = api.get_config(arch, smoke=True)
+    cpu = api.build_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(87), scale=c["scale"])
+    dev = api.build_model(cfg, device=DEV).load_params(cpu.params())
+    toks = torch.from_numpy(np.random.default_rng(88).integers(
+        0, cfg.vocab, size=(c["batch"], c["prompt"])))
+    S = c["prompt"] + c["steps"]
+    worst, scale, launches, unheld = 0.0, 0.0, 0, 0
+    routes = {"calls": 0, "near_ties": 0, "flips": 0}
+    drops = []
+    with torch.inference_mode():
+        for step in range(c["steps"] + 1):
+            with MoeRecorder(torch) as r_cpu:
+                if step:
+                    tok = torch.argmax(l_cpu, dim=-1)
+                    c_cpu, l_cpu = cpu.decode_step(c_cpu, tok)
+                else:
+                    c_cpu, l_cpu = cpu.prefill(toks, S)
+            with MoeRecorder(torch) as r_dev:
+                before = gk.launch_count()
+                if step:
+                    c_dev, l_dev = dev.decode_step(c_dev, tok.to(DEV))
+                else:
+                    c_dev, l_dev = dev.prefill(toks.to(DEV), S)
+                launches += gk.launch_count() - before
+            rc = route_compare(torch, r_cpu.calls, r_dev.calls, cfg.top_k)
+            for k in routes:
+                routes[k] += rc[k]
+            if not step:
+                drops = [x["dropped"] for x in r_cpu.calls]
+            scale = max(scale, float(l_cpu.abs().max()))
+            if rc["flips"] or unheld:
+                # a near tie flipped: from here the two runs may part (a
+                # prefill flip moves other tokens' places in the queues)
+                unheld += 1
+                continue
+            worst = max(worst, check_close(f"{arch} f32 step {step}",
+                                           l_dev.cpu(), l_cpu, LM_F32_TOL,
+                                           LM_F32_TOL))
+    if launches != c["steps"] * cfg.n_layers:
+        raise AssertionError(f"{arch} f32: {launches} gqa_decode launches")
+    rec = {**c, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "max_abs_err": worst, "ref_max_abs": scale, "tol": LM_F32_TOL,
+           "prefill_dropped": drops, "routing": routes,
+           "steps_not_held_for_flips": unheld, "gqa_launches": launches}
+    log(f"[moe-f32 {arch}] " + json.dumps(rec))
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -2344,6 +2887,13 @@ def main(argv=None) -> int:
     record["chaos"] = run("chaos", phase_chaos, torch, api, rk, gk, obs)
     record["resume"] = run("resume", phase_resume, torch, api, lk,
                            obs)
+    record["gqa_new"] = run("gqa_new", phase_gqa_new, torch, api, ops, ref,
+                            gk)
+    record["whisper_serve"] = run("whisper_serve", phase_whisper_serve,
+                                  torch, api, gk, obs)
+    record["whisper_f32"] = run("whisper_f32", phase_whisper_f32, torch,
+                                api, gk)
+    record["moe"] = run("moe", phase_moe, torch, api, ops, ref, gk)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]

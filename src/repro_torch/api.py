@@ -2,9 +2,10 @@
 
 The counterpart of ``repro.api`` for what the port runs so far: planning,
 execution of planned networks through the hand-written ``rir_matmul``
-kernel, the dense LMs (their decode attention through the hand-written
-``gqa_decode`` kernel), rwkv6 and the zamba2 hybrid (their chunked scans
-through the hand-written ``linear_scan`` kernel), serving of all of them,
+kernel, the dense and MoE LMs and the whisper encoder-decoder (their
+decode attention through the hand-written ``gqa_decode`` kernel), rwkv6
+and the zamba2 hybrid (their chunked scans through the hand-written
+``linear_scan`` kernel), serving of all of them,
 and training on one device (AdamW, the WSD schedule, the synthetic data
 stream, checkpoints in ``repro``'s format and the restart supervisor).
 Entry points
@@ -47,7 +48,7 @@ from repro_torch.core.layoutloop import EvalConfig
 from repro_torch.core.workloads import init_graph_weights
 from repro_torch.data import DataConfig, SyntheticLMStream, make_stream
 from repro_torch.distributed import make_train_step
-from repro_torch.models import build_model
+from repro_torch.models import EncDecModel, build_model
 from repro_torch.optim import adamw_init, adamw_update, wsd_schedule
 from repro_torch.plan import (ExecutionPlan, LayerGraph, PlanCache,
                               PlannerOptions, PreparedNetwork, ResolvedPlan,
@@ -123,7 +124,8 @@ __all__ = [
     "execute_network_reference", "fold_batchnorm", "step_kernel_blocks",
     "init_graph_weights", "to_torch_weights",
     # models
-    "ARCH_IDS", "get_config", "build_model", "to_torch_lm_params",
+    "ARCH_IDS", "get_config", "build_model", "EncDecModel",
+    "to_torch_lm_params",
     "to_repro_lm_params", "to_torch_adamw_state", "to_repro_adamw_state",
     # serving
     "ServeEngine", "ServeConfig", "ServeTicket", "QueueFullError",

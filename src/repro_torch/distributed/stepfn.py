@@ -20,9 +20,11 @@ def make_train_step(model, *, accum: int = 1, lr: float = 3e-4,
     """Returns ``train_step(opt_state, batch) -> (opt_state, metrics)``.
 
     ``model`` is an ``LMModel`` on its device; its parameters get gradients
-    from here on.  ``batch`` is ``{"tokens": (B, T+1)}`` (numpy or a
-    tensor); ``accum`` > 1 splits it into that many microbatches and
-    averages their f32 gradients, as the JAX step's ``lax.scan`` does.
+    from here on.  ``batch`` is ``{"tokens": (B, T+1)}``, with ``"frames"``
+    (B, Tenc, D) for an encoder-decoder (numpy or tensors), handed to
+    ``model.loss``; ``accum`` > 1 splits it into that many microbatches
+    and averages their f32 gradients, as the JAX step's ``lax.scan``
+    does.
     The learning rate is ``schedule(opt_state.step)`` (the step count
     before this update) or ``lr``.  ``metrics``: ``{"loss": f32 scalar
     tensor on the model's device, "lr": float}``.
@@ -32,24 +34,27 @@ def make_train_step(model, *, accum: int = 1, lr: float = 3e-4,
     names = list(params)
     leaves = [params[n] for n in names]
 
-    def grads_of(tokens: torch.Tensor) -> Tuple[torch.Tensor, list]:
-        loss = model.loss({"tokens": tokens})
+    def grads_of(mb: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, list]:
+        loss = model.loss(mb)
         return loss, list(torch.autograd.grad(loss, leaves))
 
     def step(opt_state: AdamWState, batch: Mapping
              ) -> Tuple[AdamWState, Dict]:
-        tokens = torch.as_tensor(batch["tokens"], device=model.device)
+        on_dev = {k: torch.as_tensor(batch[k], device=model.device)
+                  for k in ("tokens", "frames") if k in batch}
         if accum == 1:
-            loss, grads = grads_of(tokens)
+            loss, grads = grads_of(on_dev)
         else:
-            B = tokens.shape[0]
+            B = on_dev["tokens"].shape[0]
             if B % accum:
                 raise ValueError(f"batch {B} does not split into {accum} "
                                  f"microbatches")
             gsum = [torch.zeros(p.shape, dtype=torch.float32,
                                 device=p.device) for p in leaves]
             losses = []
-            for mb in tokens.reshape(accum, B // accum, -1):
+            for i in range(accum):
+                mb = {k: v[i * (B // accum):(i + 1) * (B // accum)]
+                      for k, v in on_dev.items()}
                 mb_loss, g = grads_of(mb)
                 gsum = [a + b for a, b in zip(gsum, g)]
                 losses.append(mb_loss.detach())

@@ -8,6 +8,12 @@ resume, with the same flags and log lines, on ``--device cuda`` by default:
         --steps 8 --batch 8 --seq 1024 --ckpt-dir /tmp/ckpt --ckpt-every 4
     PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_1p6b \\
         --smoke --device cpu --steps 3 --batch 2 --seq 64
+    PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_small \\
+        --smoke --device cpu --steps 2 --batch 2 --seq 16
+
+An encoder-decoder (whisper) trains on the stream's stub frame embeddings
+(``frames_dim = d_model``, ``frames_len = enc_frames``), as ``repro``'s
+launcher does.
 
 ``--ckpt-dir`` resumes from the newest committed checkpoint there ("resumed
 from step N"), saves every ``--ckpt-every`` steps and at the end, and
@@ -116,9 +122,11 @@ def train(args: argparse.Namespace) -> dict:
                             decay=max(1, args.steps // 3))
 
     step_fn = make_train_step(model, accum=args.accum, schedule=sched)
-    stream = SyntheticLMStream(DataConfig(vocab=cfg.vocab,
-                                          global_batch=args.batch,
-                                          seq_len=args.seq))
+    encdec = cfg.family == "encdec"       # stub frames for the encoder
+    stream = SyntheticLMStream(DataConfig(
+        vocab=cfg.vocab, global_batch=args.batch, seq_len=args.seq,
+        frames_dim=cfg.d_model if encdec else 0,
+        frames_len=cfg.enc_frames))
 
     start, mgr = 0, None
     if args.ckpt_dir:

@@ -1,8 +1,6 @@
-"""Model zoo factory: the dense decoder-only LMs, the SSMs (rwkv6, mamba2)
-and the zamba2 hybrid so far.
-
-``build_model`` raises ``NotImplementedError`` naming the ROADMAP item for a
-family the port does not run yet (MoE, encoder-decoder).
+"""Model zoo factory: every family of the zoo — the dense and MoE
+decoder-only LMs, the SSMs (rwkv6, mamba2), the zamba2 hybrid and the
+whisper encoder-decoder.
 """
 from __future__ import annotations
 
@@ -10,6 +8,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 
+from .encdec import EncDecModel
 from .hybrid import HybridModel
 from .lm import LMModel
 
@@ -18,12 +17,14 @@ def build_model(cfg: ArchConfig, device: str | torch.device = "cuda"
                 ) -> LMModel:
     """The model for ``cfg`` with uninitialised parameters on ``device``
     (``LMModel.init`` draws them, ``LMModel.load_params`` copies them in):
-    ``HybridModel`` for the hybrid family, ``LMModel`` otherwise.
-    ``device="cuda"`` raises where there is no CUDA; ``"cpu"`` runs the
-    plain PyTorch path."""
+    ``EncDecModel`` for the encdec family, ``HybridModel`` for the hybrid
+    family, ``LMModel`` otherwise.  ``device="cuda"`` raises where there
+    is no CUDA; ``"cpu"`` runs the plain PyTorch path."""
+    if cfg.family == "encdec":
+        return EncDecModel(cfg, device=device)
     if cfg.family == "hybrid":
         return HybridModel(cfg, device=device)
     return LMModel(cfg, device=device)
 
 
-__all__ = ["build_model", "LMModel", "HybridModel"]
+__all__ = ["build_model", "LMModel", "HybridModel", "EncDecModel"]

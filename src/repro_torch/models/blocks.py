@@ -1,14 +1,17 @@
-"""Attention and MLP blocks with spec/apply pairs.
+"""Attention, cross-attention, MLP and MoE blocks with spec/apply pairs.
 
-The port of ``repro.models.blocks`` (dense blocks; the MoE block comes with
-ROADMAP Queue 1 item 6b).  Every block provides ``*_specs(cfg)``, a spec
-tree for ONE layer, and functions that take the layer's ``ParamModule``
-(read as ``p["wq"]``, as the JAX code reads its pytree).  Weights keep the
-JAX ``(d_in, d_out)`` orientation (``x @ w``), so carrying weights across
-is a copy.
+The port of ``repro.models.blocks``.  Every block provides
+``*_specs(cfg)``, a spec tree for ONE layer, and functions that take the
+layer's ``ParamModule`` (read as ``p["wq"]``, as the JAX code reads its
+pytree).  Weights keep the JAX ``(d_in, d_out)`` orientation (``x @ w``;
+the MoE experts ``(E, d_in, d_out)``), so carrying weights across is a
+copy.  The MoE block is ``repro``'s capacity-based top-k dispatch in plain
+torch, step for step; the expert-parallel variant (``moe_apply_ep``) needs
+a mesh and waits for ROADMAP Queue 1 item 10.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -25,7 +28,9 @@ def dtype_of(cfg: ArchConfig) -> torch.dtype:
 
 
 # -------------------------------------------------------------------- attention
-def attn_specs(cfg: ArchConfig) -> SpecTree:
+def attn_specs(cfg: ArchConfig, cross: bool = False) -> SpecTree:
+    """One attention block; ``cross`` changes nothing (``repro``'s
+    signature: a cross block has the same leaves)."""
     D, dh = cfg.d_model, cfg.head_dim
     H, Hkv = cfg.n_heads, cfg.n_kv_heads
     dt = dtype_of(cfg)
@@ -62,6 +67,16 @@ def attn_train(cfg: ArchConfig, p, x: torch.Tensor,
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
     o = chunked_attention(q, k, v, causal=causal)
+    return dense(o.reshape(B, T, -1), p["wo"])
+
+
+def cross_attn_train(cfg: ArchConfig, p, x: torch.Tensor,
+                     memory: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, D) attends over ``memory`` (B, Tenc, D), no mask, no
+    RoPE; the block's norm is applied to both."""
+    B, T, D = x.shape
+    q, k, v = _qkv(cfg, p, x, kv_src=memory)
+    o = chunked_attention(q, k, v, causal=False)
     return dense(o.reshape(B, T, -1), p["wo"])
 
 
@@ -119,3 +134,87 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     up = dense(h, p["wu"])
     gate = dense(h, p["wg"]) if cfg.act == "swiglu" else None
     return dense(activation(cfg.act, up, gate), p["wd"])
+
+
+# ------------------------------------------------------------------------- MoE
+def moe_specs(cfg: ArchConfig) -> SpecTree:
+    """The router (f32 in any model), the experts' stacked MLP weights and,
+    where the config has one, the shared expert (an MLP without a norm)."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    dt = dtype_of(cfg)
+    s = {"norm": norm_spec(cfg.norm, D, dt),
+         "router": ((D, E), torch.float32),
+         "wu": ((E, D, F), dt),
+         "wd": ((E, F, D), dt)}
+    if cfg.act == "swiglu":
+        s["wg"] = ((E, D, F), dt)
+    if cfg.shared_expert:
+        s["shared"] = {k: v for k, v in mlp_specs(cfg).items() if k != "norm"}
+    return s
+
+
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Rows an expert takes for ``n_tokens`` tokens: ``N K / E`` times the
+    capacity factor, rounded up to a multiple of 8, at most N."""
+    E, K = cfg.n_experts, cfg.top_k
+    C = int(math.ceil(n_tokens * K / E * cfg.capacity_factor / 8.0)) * 8
+    return min(C, n_tokens)
+
+
+def moe_route(cfg: ArchConfig, p, x: torch.Tensor):
+    """x: (B, T, D) -> (the normed tokens (N, D), the router logits (N, E)
+    in f32, their top k: ``(values, indices)``, each (N, K))."""
+    h = apply_norm(cfg.norm, x, p["norm"])
+    flat = h.reshape(-1, x.shape[-1])
+    logits = flat.float() @ p["router"]
+    return flat, logits, torch.topk(logits, cfg.top_k, dim=-1)
+
+
+def moe_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """Capacity-based top-k dispatch, ``repro.models.blocks.moe_apply``
+    step for step: the top-k gates softmaxed; a stable sort of the flat
+    expert ids gives each (token, k) its place in its expert's queue; a
+    place at or past the capacity C goes to the one spill row ``E C``
+    (dropped, its contents never read); the experts run as batched
+    products over their ``(E, C, D)`` buffers; each token gathers its K
+    outputs and sums them weighted by its gates (the combine is FEATHER's
+    reduce-while-reordering over the expert axis); the shared expert adds
+    after.  A bf16 product accumulates in f32 and rounds once, as
+    ``preferred_element_type=float32`` then ``astype`` does.  C depends on
+    the N = B T tokens of the call, so whether a token is dropped depends
+    on its batch peers, as in ``repro``."""
+    B, T, D = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    N = B * T
+    flat, _, (top, idx) = moe_route(cfg, p, x)
+    gates = torch.softmax(top, dim=-1)                             # (N, K)
+
+    C = moe_capacity(cfg, N)
+    flat_e = idx.reshape(-1)                                       # (N*K,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    counts = torch.bincount(sorted_e, minlength=E)
+    starts = torch.cumsum(counts, 0) - counts
+    pos_in_e = torch.arange(N * K, device=x.device) - starts[sorted_e]
+    slot_sorted = torch.where(pos_in_e < C, sorted_e * C + pos_in_e, E * C)
+    slot = torch.empty_like(slot_sorted)
+    slot[order] = slot_sorted
+
+    buf = flat.new_zeros((E * C + 1, D))
+    dispatched = buf.index_put((slot_sorted,), flat[order // K])
+    dispatched = dispatched[:E * C].reshape(E, C, D)
+
+    up = torch.bmm(dispatched, p["wu"])
+    gate_h = torch.bmm(dispatched, p["wg"]) if cfg.act == "swiglu" else None
+    out_e = torch.bmm(activation(cfg.act, up, gate_h), p["wd"])
+    out_pad = torch.cat([out_e.reshape(E * C, D), flat.new_zeros((1, D))])
+
+    gathered = out_pad[slot.reshape(N, K)]                         # (N, K, D)
+    combined = torch.sum(gathered * gates[..., None].to(flat.dtype), dim=1)
+    if cfg.shared_expert:
+        sp = p["shared"]
+        up_s = dense(flat, sp["wu"])
+        gate_s = dense(flat, sp["wg"]) if cfg.act == "swiglu" else None
+        combined = combined + dense(activation(cfg.act, up_s, gate_s),
+                                    sp["wd"])
+    return combined.reshape(B, T, D)

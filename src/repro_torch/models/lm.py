@@ -1,13 +1,15 @@
-"""Decoder-only LM assembler for the dense, SSM (rwkv6, mamba2) and hybrid
-families.
+"""Decoder-only LM assembler for the dense, MoE, SSM (rwkv6, mamba2) and
+hybrid families.
 
 The port of ``repro.models.lm`` for ``family="dense"`` (and ``"vlm"``,
-which ``prefill`` lists) and ``family="ssm"`` with either mixer (a config
-named ``rwkv*`` takes RWKV6, any other Mamba2): the same parameter tree
-under the same leaf names (``embed``, ``final_norm``,
-``layers.<i>.mixer``/``ffn``, ``lm_head`` when the head is untied), the same
-forward, loss, prefill and decode.  ``family="hybrid"`` (zamba2) is
-``HybridModel`` in ``hybrid.py``, built on this class.  Where the JAX
+which ``prefill`` lists), ``family="moe"`` (the MLP a capacity-based top-k
+expert block, ``blocks.moe_apply``) and ``family="ssm"`` with either mixer
+(a config named ``rwkv*`` takes RWKV6, any other Mamba2): the same
+parameter tree under the same leaf names (``embed``, ``final_norm``,
+``layers.<i>.mixer``/``ffn``, ``lm_head`` when the head is untied), the
+same forward, loss, prefill and decode.  ``family="hybrid"`` (zamba2) is
+``HybridModel`` in ``hybrid.py`` and ``family="encdec"`` (whisper) is
+``EncDecModel`` in ``encdec.py``, both built on this class.  Where the JAX
 package stacks a leading layer axis and scans, the port keeps one
 ``ParamModule`` per layer in a ``ModuleList`` and loops; ``jax.checkpoint``
 of a layer (``remat``) becomes ``torch.utils.checkpoint``.  Caches are
@@ -17,7 +19,9 @@ S, Hkv, dh), "length": (B,) int32}`` for attention, ``{"layers":
 {"x_prev": (L, B, D), "state": (L, B, H, hd, hd) f32}, "length"}`` for
 rwkv6, ``{"layers": {"conv": (L, B, W-1, C), "ssm": (L, B, H, state, hd)
 f32}, "length"}`` for mamba2.  Parameters are built without gradients
-(serving); a trainer turns them on (``requires_grad_(True)``).
+(serving); a trainer turns them on (``requires_grad_(True)``).  The MoE
+experts run without expert parallelism (``repro``'s ``moe_apply_ep`` needs
+a mesh: ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 
@@ -31,18 +35,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
-                     dtype_of, mlp_apply, mlp_specs)
+                     dtype_of, mlp_apply, mlp_specs, moe_apply, moe_specs)
 from .common import ParamModule, Spec, SpecTree, apply_norm, dense, norm_spec
 from .ssm import (mamba2_cache_specs, mamba2_decode, mamba2_specs,
                   mamba2_train, rwkv6_cache_specs, rwkv6_decode, rwkv6_specs,
                   rwkv6_train)
 
-#: families the port runs, and the ROADMAP item each other one waits for
-FAMILIES = ("dense", "vlm", "ssm", "hybrid")
-NOT_PORTED = {
-    "moe": "ROADMAP.md Queue 1 item 6b (MoE: moe_specs/moe_apply)",
-    "encdec": "ROADMAP.md Queue 1 item 8 (encoder-decoder)",
-}
+#: the families of the model zoo, every one of which the port runs
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
 def _is_rwkv(cfg: ArchConfig) -> bool:
@@ -57,12 +57,10 @@ def _is_mamba2(cfg: ArchConfig) -> bool:
 
 
 def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP item for a family
-    the port does not run yet."""
+    """Raise ``NotImplementedError`` for a family outside ``FAMILIES``."""
     if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet: "
-            f"{NOT_PORTED.get(cfg.family, 'ROADMAP.md Queue 1')}")
+            f"{cfg.name}: family {cfg.family!r} is not one of {FAMILIES}")
 
 
 def flat_specs(tree: SpecTree, prefix: str = "") -> Iterator[Tuple[str, Spec]]:
@@ -87,15 +85,17 @@ def top_specs(cfg: ArchConfig) -> SpecTree:
 
 
 def layer_specs(cfg: ArchConfig) -> SpecTree:
-    """One layer's parameters: the mixer, and the MLP (an SSM config
-    without ``d_ff`` has none; a hybrid backbone layer has none)."""
+    """One layer's parameters: the mixer, and the MLP (an MoE block for
+    the moe family; an SSM config without ``d_ff`` has none; a hybrid
+    backbone layer has none)."""
     if cfg.family in ("ssm", "hybrid"):
         out = {"mixer": rwkv6_specs(cfg) if _is_rwkv(cfg)
                else mamba2_specs(cfg)}
         if cfg.family == "ssm" and cfg.d_ff:
             out["ffn"] = mlp_specs(cfg)
         return out
-    return {"mixer": attn_specs(cfg), "ffn": mlp_specs(cfg)}
+    return {"mixer": attn_specs(cfg),
+            "ffn": moe_specs(cfg) if cfg.family == "moe" else mlp_specs(cfg)}
 
 
 def shared_specs(cfg: ArchConfig) -> SpecTree:
@@ -109,8 +109,12 @@ def shared_specs(cfg: ArchConfig) -> SpecTree:
 def param_specs(cfg: ArchConfig) -> Dict[str, Spec]:
     """Every parameter's (shape, dtype) under the names ``LMModel.params``
     uses: ``embed``, ``final_norm.w``, ``layers.<i>.mixer.wq``, ...; for a
-    hybrid, ``shared.attn.wq`` and the rest of the shared block too."""
+    hybrid, ``shared.attn.wq`` and the rest of the shared block too; for
+    an encoder-decoder, ``encdec.param_specs``' names."""
     check_family(cfg)
+    if cfg.family == "encdec":
+        from .encdec import param_specs as encdec_param_specs
+        return encdec_param_specs(cfg)
     out = dict(flat_specs(top_specs(cfg)))
     layer = list(flat_specs(layer_specs(cfg)))
     for i in range(cfg.n_layers):
@@ -185,12 +189,19 @@ class LMModel(nn.Module):
             return mamba2_train(self.cfg, p, x)
         return attn_train(self.cfg, p, x)
 
+    def _ffn(self, layer: ParamModule, x: torch.Tensor) -> torch.Tensor:
+        """The layer's MLP (or MoE block) on (B, T, D); zeros where the
+        layer has none."""
+        if self.cfg.family == "moe":
+            return moe_apply(self.cfg, layer["ffn"], x)
+        if hasattr(layer, "ffn"):
+            return mlp_apply(self.cfg, layer["ffn"], x)
+        return torch.zeros_like(x)
+
     def _layer_train(self, x: torch.Tensor, layer: ParamModule
                      ) -> torch.Tensor:
         x = x + self._mixer_train(layer["mixer"], x)
-        if hasattr(layer, "ffn"):
-            x = x + mlp_apply(self.cfg, layer["ffn"], x)
-        return x
+        return x + self._ffn(layer, x)
 
     def hidden_states(self, tokens: torch.Tensor, remat: bool = True
                       ) -> torch.Tensor:
@@ -276,9 +287,8 @@ class LMModel(nn.Module):
         for i, layer in enumerate(self.layers):
             x = x + self._mixer_decode(i, layer["mixer"], x, cache["layers"],
                                        length)
-            if hasattr(layer, "ffn"):
-                # the ffn runs on a (B, 1, D) pseudo-sequence, as in JAX
-                x = x + mlp_apply(cfg, layer["ffn"], x[:, None, :])[:, 0]
+            # the ffn runs on a (B, 1, D) pseudo-sequence, as in JAX
+            x = x + self._ffn(layer, x[:, None, :])[:, 0]
         x = apply_norm(cfg.norm, x, self.top.final_norm)
         logits = self.logits(x)
         length.add_(1)
@@ -305,7 +315,7 @@ class LMModel(nn.Module):
             for i, layer in enumerate(self.layers):
                 delta, (k, v) = attn_prefill(cfg, layer["mixer"], x)
                 x = x + delta
-                x = x + mlp_apply(cfg, layer["ffn"], x)
+                x = x + self._ffn(layer, x)
                 ks[i, :, :T] = k
                 vs[i, :, :T] = v
         x = apply_norm(cfg.norm, x, self.top.final_norm)

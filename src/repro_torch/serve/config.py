@@ -35,10 +35,12 @@ class ServeConfig:
     the model stack, every decode step's attention through the
     ``gqa_decode`` kernel on ``device``) or ``graph`` (planned-network
     serving: ``PreparedNetwork`` through the ``rir_matmul`` kernel) selects
-    the workload.  The port serves dense LMs, rwkv6 and the zamba2 hybrid
-    so far: an ``arch`` of another family raises ``NotImplementedError``
-    naming its ROADMAP item.
-    ``max_batch`` is
+    the workload.  Every arch of the zoo serves: the dense and MoE LMs,
+    rwkv6, the zamba2 hybrid and the whisper encoder-decoder (its encoder
+    takes zero stub frames, as in ``repro``; its decode steps launch
+    ``gqa_decode`` twice a layer).  An MoE config's expert capacity
+    depends on the batch's N = B T tokens, so an MoE request's tokens may
+    depend on its batch peers (in ``repro`` too).  ``max_batch`` is
     the batch extent the plan is built at — the ceiling for dynamic batch
     assembly; ``assemble_max`` caps how many queued requests one batch may
     actually carry (``None`` = ``max_batch``; ``1`` is the sequential

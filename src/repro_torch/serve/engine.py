@@ -1,4 +1,4 @@
-"""Continuous-batching serve engine for planned networks and dense LMs.
+"""Continuous-batching serve engine for planned networks and the LM zoo.
 
 The port of ``repro.serve.engine``: requests enter a bounded admission
 queue, worker threads assemble dynamic batches up to the plan tile's batch
@@ -10,8 +10,10 @@ through one of two backends.  Planned networks go through one
 LMs (``arch=``) run prefill, then greedy decode: every decode step's
 attention layers each launch ``gqa_decode`` once, the tokens stay on the
 device, and one copy at the end brings the batch's tokens back.  An SSM
-(rwkv6) scans its prompt in through ``decode_step``, one token at a time,
-as the JAX engine does (``serve.prefill_ms`` covers that scan-in).  Plan
+(rwkv6) or the hybrid scans its prompt in through ``decode_step``, one
+token at a time, as the JAX engine does (``serve.prefill_ms`` covers that
+scan-in); every other family runs ``prefill`` (the encoder-decoder's
+encoder over its zero stub frames, the model's default).  Plan
 resolution rides the degradation ladder (``repro_torch.plan.resolve_plan``)
 against a warm ``PlanCache`` shared across workers, and a request admitted
 at a degraded tier upgrades itself: a background thread retries the full

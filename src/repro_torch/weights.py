@@ -9,8 +9,9 @@ bias against ``(M,)``.
 
 LMs (``to_torch_lm_params``): the input is the JAX parameter pytree as
 numpy (``jax.tree.map(np.asarray, model.init(key))``), with its stacked
-leading layer axis; each leaf is checked against the port's
-``param_specs``.
+leading layer axis (``layers``; an encoder-decoder's ``enc_layers`` and
+``dec_layers``, each of its own depth); each leaf is checked against the
+port's ``param_specs``.
 """
 from __future__ import annotations
 
@@ -89,23 +90,34 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
+def _stacks(cfg: ArchConfig) -> Dict[str, int]:
+    """The stacked subtrees of ``repro``'s tree and the depth of each."""
+    if cfg.family == "encdec":
+        return {"enc_layers": cfg.enc_layers, "dec_layers": cfg.n_layers}
+    return {"layers": cfg.n_layers}
+
+
 def _unstack(params: Mapping, cfg: ArchConfig, dev: torch.device,
              dtype: Optional[torch.dtype]) -> Dict[str, torch.Tensor]:
     """``repro``'s stacked tree as the port's named tensors, each in
-    ``dtype`` (None: the spec's)."""
+    ``dtype`` (None: its spec's, so an f32 leaf of a bf16 model, the MoE
+    router, stays f32)."""
     specs = param_specs(cfg)
-    L = cfg.n_layers
+    stacks = _stacks(cfg)
     flat: Dict[str, np.ndarray] = {}
     for path, leaf in _leaves(params):
         a = np.asarray(leaf)
-        if not path.startswith("layers."):
+        stack = path.split(".", 1)[0]
+        if stack not in stacks:
             flat[path] = a
             continue
+        L = stacks[stack]
         if a.shape[:1] != (L,):
             raise ValueError(f"{path}: shape {a.shape} has no leading layer "
                              f"axis of {L}")
+        rest = path[len(stack) + 1:]
         for i in range(L):
-            flat[f"layers.{i}.{path[len('layers.'):]}"] = a[i]
+            flat[f"{stack}.{i}.{rest}"] = a[i]
     if set(flat) != set(specs):
         missing = sorted(set(specs) - set(flat))[:5]
         extra = sorted(set(flat) - set(specs))[:5]
@@ -128,18 +140,18 @@ def _put(tree: Dict, path: str, value) -> None:
     tree[leaf] = value
 
 
-def _stacked_names(specs: Mapping
-                   ) -> Iterator[Tuple[str, str, Optional[str]]]:
-    """(``repro`` leaf path, the port's name of it or of its layer 0, the
-    per-layer suffix or None) for every leaf of the stacked tree, in
-    ``specs``' order."""
-    prefix = "layers.0."
+def _stacked_names(specs: Mapping, stacks: Mapping[str, int]
+                   ) -> Iterator[Tuple[str, str, Optional[Tuple[str, str]]]]:
+    """(``repro`` leaf path, the port's name of it or of its layer 0,
+    ``(stack, per-layer suffix)`` or None) for every leaf of the stacked
+    tree, in ``specs``' order; a per-layer name is ``<stack>.<i>.<rest>``
+    for a stack of ``stacks``."""
     for name in specs:
-        if name.startswith(prefix):
-            rest = name[len(prefix):]
-            yield f"layers.{rest}", name, rest
-        elif not name.startswith("layers."):
+        parts = name.split(".", 2)
+        if parts[0] not in stacks:
             yield name, name, None
+        elif parts[1] == "0":
+            yield f"{parts[0]}.{parts[2]}", name, (parts[0], parts[2])
 
 
 def _stack(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict:
@@ -151,11 +163,15 @@ def _stack(named: Mapping[str, torch.Tensor], cfg: ArchConfig) -> Dict:
         extra = sorted(set(named) - set(specs))[:5]
         raise ValueError(f"{cfg.name}: parameter names differ from the "
                          f"port's: missing {missing}, unexpected {extra}")
+    stacks = _stacks(cfg)
     tree: Dict = {}
-    for path, name, rest in _stacked_names(specs):
-        _put(tree, path, _to_numpy(named[name]) if rest is None else
-             np.stack([_to_numpy(named[f"layers.{i}.{rest}"])
-                       for i in range(cfg.n_layers)]))
+    for path, name, layer in _stacked_names(specs, stacks):
+        if layer is None:
+            _put(tree, path, _to_numpy(named[name]))
+            continue
+        stack, rest = layer
+        _put(tree, path, np.stack([_to_numpy(named[f"{stack}.{i}.{rest}"])
+                                   for i in range(stacks[stack])]))
     return tree
 
 
@@ -167,10 +183,12 @@ def to_torch_lm_params(params: Mapping, cfg: ArchConfig,
     ``params`` is nested like ``repro.models.LMModel.param_specs()``
     (``embed``, ``final_norm``, ``layers`` with a leading layer axis on
     every leaf, ``lm_head`` when the head is untied; a hybrid's ``shared``
-    block, which has no layer axis, is carried as it is), its leaves numpy
-    arrays (bf16 ones included, as ``ml_dtypes`` arrays or as ``V2``
-    patterns).  The result has one entry per layer
-    (``layers.<i>.mixer.wq``, ...), in ``cfg``'s dtype, and goes to
+    block, which has no layer axis, is carried as it is; an
+    encoder-decoder's ``enc_layers`` and ``dec_layers`` each with its own
+    leading axis), its leaves numpy arrays (bf16 ones included, as
+    ``ml_dtypes`` arrays or as ``V2`` patterns).  The result has one entry
+    per layer (``layers.<i>.mixer.wq``, ``dec_layers.<i>.cross.wq``, ...),
+    each in its spec's dtype (``cfg``'s, the MoE router f32), and goes to
     ``LMModel.load_params`` or ``ServeEngine(weights=...)``.  A missing or
     unexpected leaf, or a shape that is not the port's, raises
     ``ValueError``.
@@ -227,11 +245,12 @@ def repro_lm_template(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
     shapes, in ``dtype`` (None: each parameter's own), a restore template
     that holds no data."""
     specs = param_specs(cfg)
+    stacks = _stacks(cfg)
     tree: Dict = {}
-    for path, name, rest in _stacked_names(specs):
+    for path, name, layer in _stacked_names(specs, stacks):
         shape, spec_dtype = specs[name]
-        if rest is not None:
-            shape = (cfg.n_layers,) + tuple(shape)
+        if layer is not None:
+            shape = (stacks[layer[0]],) + tuple(shape)
         dt = dtype or spec_dtype
         np_dtype = np.dtype("V2") if dt == torch.bfloat16 else \
             torch.empty((), dtype=dt).numpy().dtype

@@ -9,8 +9,9 @@ f32/int32 tree gives byte-identical files and each package restores the
 other's; a bf16 leaf goes from ``repro`` into the port bit for bit (the
 other way fails in ``repro`` as ``repro``'s own bf16 restore does); the
 trainer's ``{"params", "opt"}`` tree crosses both ways through
-``to_repro_lm_params`` / ``to_torch_lm_params``; and the port's launcher
-resumes to the loss of a straight run.
+``to_repro_lm_params`` / ``to_torch_lm_params``, whisper's and dbrx's too
+(byte for byte); and the port's launcher resumes to the loss of a
+straight run.
 """
 import dataclasses
 import json
@@ -517,6 +518,88 @@ def test_repro_optimizer_layout_has_repro_field_order(trainer_trees):
               jax.tree_util.tree_flatten_with_path(
                   {"opt": jadamw.AdamWState(*state)})[0]]
     assert names == jnames and names[0] == "opt__step"
+
+
+# ------------------------------------------- the new families' trees
+NEW_FAMILIES = ["whisper_small", "dbrx_132b"]
+
+
+@pytest.fixture(scope="module", params=NEW_FAMILIES)
+def family_trees(request):
+    """whisper (two layer stacks of their own depths) and dbrx (the MoE
+    experts' (E, ...) leaves) at SMOKE: ``repro``'s params and fresh
+    optimizer state, and the same carried into the port's model and its
+    fresh state."""
+    arch = request.param
+    jmodel = jbuild_model(jget_config(arch, smoke=True))
+    jparams = jmodel.init(jax.random.PRNGKey(5))
+    cfg = get_config(arch, smoke=True)
+    model = build_model(cfg, device="cpu").load_params(
+        to_torch_lm_params(jax.tree.map(np.asarray, jparams), cfg, "cpu"))
+    return {"cfg": cfg, "jtree": {"params": jparams,
+                                  "opt": jadamw.adamw_init(jparams)},
+            "tree": {"params": to_repro_lm_params(model.params(), cfg),
+                     "opt": to_repro_adamw_state(
+                         adamw.adamw_init(model.params()), cfg)},
+            "model": model}
+
+
+def test_new_families_checkpoint_is_repros_file_byte_for_byte(
+        tmp_path, family_trees):
+    t = family_trees
+    jckpt.save_pytree(t["jtree"], tmp_path / "j")
+    ckpt.save_pytree(t["tree"], tmp_path / "t")
+    jf, tf = _files(tmp_path / "j"), _files(tmp_path / "t")
+    assert sorted(jf) == sorted(tf)
+    stacked = ("arrays/params__dec_layers__cross__wkv.npy"
+               if t["cfg"].family == "encdec" else
+               "arrays/params__layers__ffn__wu.npy")
+    assert stacked in jf
+    for name in jf:
+        assert jf[name] == tf[name], name
+
+
+@pytest.mark.parametrize("writer", ["repro", "repro_torch"])
+def test_new_families_restore_into_the_other_package(tmp_path, family_trees,
+                                                     writer):
+    t = family_trees
+    cfg = t["cfg"]
+    if writer == "repro":
+        jckpt.save_pytree(t["jtree"], tmp_path / "s")
+        got = ckpt.restore_pytree({"params": repro_lm_template(cfg),
+                                   "opt": repro_adamw_template(cfg)},
+                                  tmp_path / "s")
+        _assert_named_equal(to_torch_lm_params(got["params"], cfg, "cpu"),
+                            t["model"].params())
+        state = to_torch_adamw_state(got["opt"], cfg, "cpu")
+        assert state.step == 0
+        _assert_named_equal(state.master, {n: p.float() for n, p in
+                                           t["model"].params().items()})
+    else:
+        ckpt.save_pytree(t["tree"], tmp_path / "s")
+        got = jckpt.restore_pytree(t["jtree"], tmp_path / "s")
+        for a, b in zip(jax.tree.leaves(got), jax.tree.leaves(t["jtree"])):
+            assert a.dtype == b.dtype and np.array_equal(np.asarray(a),
+                                                         np.asarray(b))
+
+
+def test_new_families_templates_keep_each_leafs_dtype(family_trees):
+    """The restore template of a bf16 model: every leaf bf16 (``V2``) but
+    the MoE router, which is f32 in any model; the layer stacks each at
+    their own depth."""
+    cfg = dataclasses.replace(family_trees["cfg"], dtype="bfloat16")
+    tmpl = repro_lm_template(cfg)
+    if cfg.family == "moe":
+        assert tmpl["layers"]["ffn"]["router"].dtype == np.float32
+        assert tmpl["layers"]["ffn"]["wu"].shape == (
+            cfg.n_layers, cfg.n_experts, cfg.d_model, cfg.d_ff)
+        assert tmpl["layers"]["ffn"]["wu"].dtype == np.dtype("V2")
+    else:
+        assert tmpl["enc_layers"]["attn"]["wq"].shape[0] == cfg.enc_layers
+        assert tmpl["dec_layers"]["cross"]["wq"].shape[0] == cfg.n_layers
+        assert tmpl["enc_pos"].dtype == np.dtype("V2")
+    shapes = lambda tr: jax.tree.map(lambda a: a.shape, tr)  # noqa: E731
+    assert shapes(tmpl) == shapes(family_trees["tree"]["params"])
 
 
 # ------------------------------------------------------------ the launcher

@@ -196,13 +196,39 @@ def test_to_torch_lm_params_refuses_bad_trees():
         to_torch_lm_params(params, tied, "cpu")
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("dbrx_132b", "6b"), ("llama4_scout_17b", "6b"), ("whisper_small", "8")])
-def test_unported_families_name_their_roadmap_item(arch, item):
-    assert arch in ARCH_IDS
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP.md Queue 1 item {item} "):
-        build_model(get_config(arch, smoke=True), device="cpu")
+def _repro_named_specs(arch: str, smoke: bool) -> dict:
+    """``repro``'s ``param_specs()`` of ``arch`` flattened to the port's
+    names: dotted paths, a stacked subtree (``layers``, ``enc_layers``,
+    ``dec_layers``) unstacked one name a layer; ``(shape, dtype name)``."""
+    jm = jbuild_model(jget_config(arch, smoke=smoke))
+    out = {}
+    for path, s in jax.tree_util.tree_flatten_with_path(jm.param_specs())[0]:
+        name = ".".join(k.key for k in path)
+        stack = name.split(".", 1)[0]
+        if stack in ("layers", "enc_layers", "dec_layers"):
+            rest = name[len(stack) + 1:]
+            for i in range(s.shape[0]):
+                out[f"{stack}.{i}.{rest}"] = (s.shape[1:], s.dtype.name)
+        else:
+            out[name] = (s.shape, s.dtype.name)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_arch_has_repros_parameter_tree(arch):
+    """Every config of the zoo builds (its SMOKE model on the CPU), and the
+    port's ``param_specs`` names every leaf of ``repro``'s tree with its
+    shape and dtype, at SMOKE and at full size (the MoE router f32 in a
+    bf16 model)."""
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke=smoke)
+        want = _repro_named_specs(arch, smoke)
+        got = {n: (tuple(shape), str(dt).split(".")[-1])
+               for n, (shape, dt) in param_specs(cfg).items()}
+        assert got == want, (arch, smoke)
+    model = build_model(cfg, device="cpu")              # the SMOKE config
+    assert {n: (tuple(p.shape), str(p.dtype).split(".")[-1])
+            for n, p in model.params().items()} == want
 
 
 def test_ssm_runs_rwkv6_only_so_far():

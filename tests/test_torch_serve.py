@@ -105,10 +105,10 @@ def test_config_device_and_lm_mode(monkeypatch):
     assert lm.device == "cuda" and (lm.prompt_len, lm.gen) == (32, 16)
     assert ServeConfig(arch="rwkv6_1p6b").device == "cuda"
     assert ServeConfig(arch="zamba2_2p7b").device == "cuda"
-    for arch, item in (("whisper_small", "8"), ("dbrx_132b", "6b")):
-        with pytest.raises(NotImplementedError,
-                           match=rf"ROADMAP.md Queue 1 item {item} "):
-            ServeConfig(arch=arch)
+    for arch in ("whisper_small", "dbrx_132b", "llama4_scout_17b"):
+        cfg = ServeConfig(arch=arch, smoke=True)     # every family serves
+        assert cfg.arch == arch and cfg.device == "cuda"
+        assert ServeConfig(arch=arch).arch == arch
     with pytest.raises(ValueError):
         ServeConfig(arch="llama3p2_3b", graph="tiny")
     with pytest.raises(ValueError):
@@ -266,7 +266,10 @@ for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
             "repro_torch.checkpoint.store", "repro_torch.runtime.chaos",
             "repro_torch.runtime.fault_tolerance", "repro_torch.launch.serve",
             "repro_torch.obs.report", "repro_torch.obs.smoke",
-            "repro_torch.serve.smoke", "repro_torch.core.accel_models"):
+            "repro_torch.serve.smoke", "repro_torch.core.accel_models",
+            "repro_torch.models.encdec", "repro_torch.models.blocks",
+            "repro_torch.configs.whisper_small",
+            "repro_torch.configs.dbrx_132b"):
     assert mod in names and mod in sys.modules, mod
 """
 
