@@ -162,7 +162,25 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     (rows whose routing flips reported, not held); peak memory.  Then the
     dispatch in f32 at SMOKE widths, card against CPU: identical routing
     wherever the router's k-th and (k+1)-th logits are more than 1e-5
-    apart (near-tie flips reported), logits at 2e-4.
+    apart (near-tie flips reported), logits at 2e-4.  Inside dbrx's model
+    lifetime (phase 23's third check): one 8 x 128 prefill with each
+    layer's MoE block run both through ``moe_apply`` and through the
+    expert-parallel ``moe_apply_ep`` on the one-rank NCCL mesh (its
+    all-to-alls and gathers called): the same capacity, routing and drops
+    (at one rank the shard's capacity is the global one), outputs within
+    2e-2 of max |out|.
+23. The mesh: one rank over NCCL, a (1, 1) ``("data", "model")`` mesh,
+    every block's collective called.  llama3.2-3b at full width and depth
+    (bf16, B 8, prompt 960): ``prefill_step`` and 16 ``serve_step``s
+    against ``LMModel.prefill``/``decode_step`` on the same weights:
+    identical greedy tokens, max |dlogit|, decode ms a token both ways,
+    the collectives a step (counted, and their device ms from one
+    profiled step) and 28 ``gqa_decode`` launches a step on the local
+    head shards.  rwkv6-1.6b at full width and 2 layers, batch 8 x 1024:
+    4 steps of ``make_train_step(model, mesh, layout_mode=...)`` in
+    ``coswitch`` and in ``fixed`` against the one-device step from the
+    same weights, losses within 1e-6 relative, 4 ``linear_scan`` launches
+    a step.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -344,6 +362,12 @@ MOE_GEN = 16
 # MOE_ROUTE_MARGIN, and flips inside it are reported
 MOE_F32 = {"batch": 8, "prompt": 32, "steps": 4, "scale": 0.2}
 MOE_ROUTE_MARGIN = 1e-5
+# phase 23: the mesh (one NCCL rank); dbrx's EP check runs in phase 22
+MESH_LM_STEPS = 16
+MESH_TRAIN_LAYERS = 2
+MESH_TRAIN_STEPS = 4
+MESH_TRAIN_REL = 1e-6
+MESH_EP_REL = 2.0 ** -8   # one bf16 rounding of max |out|
 
 
 def log(msg: str) -> None:
@@ -2757,12 +2781,80 @@ def phase_moe(torch, api, ops, ref, gk) -> dict:
                                for c in prefill_rec.calls],
             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
             "sample_tokens": served[0, :12].tolist()})
+        if arch == "dbrx_132b":
+            r["ep_mesh"] = moe_ep_check(torch, model, toks, S)
         log(f"[moe {arch}] " + json.dumps(r))
         del model, cache, saved, runs, prefill_rec
         gc.collect()
         torch.cuda.empty_cache()
         r["f32"] = moe_f32(torch, api, gk, arch)
         rec[arch] = r
+    return rec
+
+
+def moe_ep_check(torch, model, toks, S) -> dict:
+    """One prefill of ``model`` with every layer's MoE block run twice on
+    the same input: ``moe_apply`` (whose output goes on) and the
+    expert-parallel ``moe_apply_ep`` on the one-rank NCCL mesh.  At one
+    rank the shard's capacity is the global one, so the slot the EP path
+    gave each (token, k) (``return_slot``) must equal ``moe_dispatch``'s
+    for ``moe_apply``'s routing, drops included; the outputs agree within
+    MESH_EP_REL of max |out|, one bf16 rounding.  The block without EP
+    (``moe_apply_tp``, which decode steps on a mesh take) runs on the same
+    input and is held to the same limit."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed import moe_ep
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models import blocks, lm
+    mesh = make_local_mesh(1, DEV)
+    real = lm.moe_apply
+    layers = []
+
+    def both(cfg, p, x):
+        want = real(cfg, p, x)
+        got, slot_ep = moe_ep.moe_apply_ep(cfg, p, x, mesh, return_slot=True)
+        N, E = x.shape[0] * x.shape[1], cfg.n_experts
+        flat, _, (_, idx) = blocks.moe_route(cfg, p, x)
+        c_one, c_ep = blocks.moe_capacity(cfg, N), moe_ep.capacity(cfg, N)
+        slot_one, _ = blocks.moe_dispatch(flat, idx, E, c_one)
+        layers.append({
+            "N": N, "C": c_one, "C_ep": c_ep,
+            "dropped": int((slot_one == E * c_one).sum()),
+            "dropped_ep": int((slot_ep == E * c_ep).sum()),
+            "same_slots": bool(torch.equal(slot_one, slot_ep)),
+            "max_abs_err": max_err(got, want),
+            "max_abs_err_tp": max_err(moe_ep.moe_apply_tp(cfg, p, x, mesh),
+                                      want),
+            "ref_max_abs": float(want.float().abs().max())})
+        return want
+
+    col.reset_calls()
+    lm.moe_apply = both
+    try:
+        with torch.inference_mode():
+            model.prefill(toks, S)
+    finally:
+        lm.moe_apply = real
+    torch.cuda.synchronize()
+    calls = dict(col.CALLS)
+    for i, c in enumerate(layers):
+        if c["C"] != c["C_ep"] or not c["same_slots"]:
+            raise AssertionError(f"EP layer {i}: capacity, routing or drops "
+                                 f"differ: {c}")
+        for key in ("max_abs_err", "max_abs_err_tp"):
+            if not c[key] <= MESH_EP_REL * c["ref_max_abs"]:
+                raise AssertionError(f"EP layer {i}: {key} {c[key]:.3e} "
+                                     f"beyond {MESH_EP_REL} x "
+                                     f"{c['ref_max_abs']:.3e}")
+    want_a2a = 2 * len(layers)
+    if calls["all_to_all_single"] != want_a2a:
+        raise AssertionError(f"EP: {calls['all_to_all_single']} "
+                             f"all-to-alls, want {want_a2a}")
+    rec = {"layers": layers, "collectives": calls,
+           "max_abs_err": max(c["max_abs_err"] for c in layers),
+           "max_abs_err_tp": max(c["max_abs_err_tp"] for c in layers),
+           "ref_max_abs": max(c["ref_max_abs"] for c in layers)}
+    log("[mesh dbrx ep] " + json.dumps(rec))
     return rec
 
 
@@ -2820,6 +2912,176 @@ def moe_f32(torch, api, gk, arch) -> dict:
            "prefill_dropped": drops, "routing": routes,
            "steps_not_held_for_flips": unheld, "gqa_launches": launches}
     log(f"[moe-f32 {arch}] " + json.dumps(rec))
+    return rec
+
+
+def nccl_device_ms(prof) -> dict:
+    """Device ms of the NCCL kernels in a ``torch.profiler`` run, the
+    device's busy ms, and its largest events."""
+    by_name, busy = device_time_by_kernel(prof)
+    return {"nccl_ms": sum(us for us, name, _ in by_name
+                           if "nccl" in name.lower()) / 1e3,
+            "busy_ms": busy,
+            "top": [[name[:50], round(us / 1e3, 4), k]
+                    for us, name, k in by_name[:10]]}
+
+
+def phase_mesh(torch, api, gk, lk, moe) -> dict:
+    """23. The distribution layer on a one-rank NCCL mesh: llama3.2-3b
+    serving through ``prefill_step``/``serve_step`` and rwkv6 training
+    through ``make_train_step(model, mesh, ...)`` in both layout modes,
+    each against the one-device path on the same weights; dbrx's EP check
+    (run in phase 22) is carried into this record."""
+    import gc
+
+    import numpy as np
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.distributed import collectives as col
+    mesh = api.make_local_mesh(1, DEV)
+    rec = {"world": dist.get_world_size(), "backend": dist.get_backend(),
+           "mesh": dict(zip(mesh.mesh_dim_names, mesh.shape))}
+    if rec["backend"] != "nccl":
+        raise AssertionError(f"backend {rec['backend']}, want nccl")
+
+    # -- llama3.2-3b: prefill_step + serve_step against the one device
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    one = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+    sharded = api.build_model(cfg, device=DEV).load_params(one.params())
+    toks = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_PROMPT))).to(DEV)
+    S = LM_PROMPT + MESH_LM_STEPS + 1
+    n = MESH_LM_STEPS
+
+    def serve(prefill, decode):
+        cache, logits = prefill(toks)
+        out, lgs = [torch.argmax(logits, -1)], [logits.float()]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            cache, logits = decode(cache, out[-1])
+            out.append(torch.argmax(logits, -1))
+            lgs.append(logits.float())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / n
+        return cache, torch.stack(out, 1), torch.stack(lgs, 1), ms
+
+    with torch.inference_mode():
+        pre = api.prefill_step(sharded, mesh, LM_BATCH, LM_PROMPT, S)
+        step = api.serve_step(sharded, mesh, LM_BATCH, S)
+        serve(lambda t: one.prefill(t, S), one.decode_step)      # warm
+        serve(pre, step)
+        _, tok1, lg1, ms1 = serve(lambda t: one.prefill(t, S),
+                                  one.decode_step)
+        gk.reset_launch_count()
+        col.reset_calls()                    # the mesh path starts
+        cache, tok2, lg2, ms2 = serve(pre, step)
+        gqa = gk.launch_count()
+        calls = dict(col.CALLS)              # ... and ends here
+        col.reset_calls()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(cache, tok2[:, -1])
+            torch.cuda.synchronize()
+        step_calls = dict(col.CALLS)
+    step_dev = nccl_device_ms(prof)
+    del prof
+    # one collective's wall time alone: 200 all-reduces of a decode
+    # step's (B, D) bf16 partial sum, fenced once
+    part = torch.randn(LM_BATCH, cfg.d_model, device=DEV,
+                       dtype=torch.bfloat16)
+    with torch.inference_mode():
+        col.all_reduce(part, mesh.get_group("model"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(200):
+            col.all_reduce(part, mesh.get_group("model"))
+        torch.cuda.synchronize()
+    one_call_ms = (time.perf_counter() - t0) * 1e3 / 200
+    dlogit = max_err(lg2, lg1)
+    lm_rec = {
+        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": LM_BATCH,
+        "prompt_len": LM_PROMPT, "decode_steps": n,
+        "tokens_identical": bool(torch.equal(tok1, tok2)),
+        "max_abs_dlogit": dlogit,
+        "ref_max_abs": float(lg1.abs().max()),
+        "decode_ms_per_token": {"one_device": ms1, "mesh": ms2},
+        "gqa_launches": gqa, "gqa_launches_per_step": gqa / n,
+        "collectives_prefill_and_steps": calls,
+        "collectives_per_step": step_calls,
+        "profiled_step_device": step_dev,
+        "all_reduce_wall_ms_per_call": one_call_ms}
+    log("[mesh llama] " + json.dumps(lm_rec))
+    if not lm_rec["tokens_identical"]:
+        raise AssertionError("mesh greedy tokens differ from one device")
+    if gqa != n * cfg.n_layers:
+        raise AssertionError(f"{gqa} gqa_decode launches on the mesh, want "
+                             f"{n * cfg.n_layers}")
+    if calls["all_reduce"] == 0:
+        raise AssertionError(f"no collective on the mesh path: {calls}")
+    rec["llama"] = lm_rec
+    del one, sharded, cache, pre, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- rwkv6: the sharded train step in both layout modes
+    cfg = dataclasses.replace(api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE),
+                              n_layers=MESH_TRAIN_LAYERS)
+    weights = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(TRAIN_SEED)).params()
+    weights = {k: v.detach().clone() for k, v in weights.items()}
+    stream = api.SyntheticLMStream(api.DataConfig(
+        vocab=cfg.vocab, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+
+    def train(mode):
+        model = api.build_model(cfg, device=DEV).load_params(weights)
+        step = api.make_train_step(model) if mode is None else \
+            api.make_train_step(model, mesh, layout_mode=mode)
+        opt = api.adamw_init(model.params())
+        losses = []
+        lk.reset_launch_count()
+        col.reset_calls()
+        for s in range(MESH_TRAIN_STEPS):
+            if s == 1:                   # the first step warms the path
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            opt, met = step(opt, stream.batch_at(s))
+            losses.append(float(met["loss"]))
+        ms = (time.perf_counter() - t0) * 1e3 / (MESH_TRAIN_STEPS - 1)
+        out = {"losses": losses, "step_ms_after_the_first": ms,
+               "scan_launches": lk.launch_count(),
+               "collectives": dict(col.CALLS)}
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out
+
+    base = train(None)
+    tr = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": TRAIN_BATCH,
+          "seq": TRAIN_SEQ, "steps": MESH_TRAIN_STEPS, "one_device": base}
+    for mode in ("coswitch", "fixed"):
+        got = train(mode)
+        got["max_rel_loss_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                 base["losses"]))
+        tr[mode] = got
+        want_scan = 2 * cfg.n_layers * MESH_TRAIN_STEPS
+        if got["scan_launches"] != want_scan:
+            raise AssertionError(f"{mode}: {got['scan_launches']} "
+                                 f"linear_scan launches, want {want_scan}")
+        if not got["max_rel_loss_diff"] <= MESH_TRAIN_REL:
+            raise AssertionError(f"{mode}: losses {got['losses']} vs one "
+                                 f"device {base['losses']}")
+        if got["collectives"]["all_reduce"] == 0:
+            raise AssertionError(f"{mode}: no collective called")
+    if tr["coswitch"]["collectives"]["reduce_scatter"] == 0:
+        raise AssertionError("coswitch reduce-scattered nothing")
+    log("[mesh rwkv6] " + json.dumps(tr))
+    rec["rwkv6"] = tr
+    rec["dbrx_ep"] = {k: moe["dbrx_132b"]["ep_mesh"][k] for k in
+                      ("max_abs_err", "ref_max_abs", "collectives")}
     return rec
 
 
@@ -2894,6 +3156,8 @@ def main(argv=None) -> int:
     record["whisper_f32"] = run("whisper_f32", phase_whisper_f32, torch,
                                 api, gk)
     record["moe"] = run("moe", phase_moe, torch, api, ops, ref, gk)
+    record["mesh"] = run("mesh", phase_mesh, torch, api, gk, lk,
+                         record["moe"])
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
@@ -2911,12 +3175,14 @@ def main(argv=None) -> int:
         "name": "gqa_decode", "route": "cuda", "source": GQA_SOURCE,
         "replaces": GQA_REPLACES,
         "launches": record["lm_serve"]["gqa_launches"],
+        "mesh_launches": record["mesh"]["llama"]["gqa_launches"],
         "max_abs_err": gq["max_abs_err"], "ms": gq["ms"],
         "plain_ms": gq["plain_ms"], "bound_ms": gq["bound_ms"],
         "bound_by": gq["bound_by"], "library_ms": gq["library_ms"]}, {
         "name": "linear_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES,
         "launches": record["train"]["scan_launches"],
+        "mesh_launches": record["mesh"]["rwkv6"]["coswitch"]["scan_launches"],
         "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"], "library_ms": None}, {

@@ -7,8 +7,10 @@ decode attention through the hand-written ``gqa_decode`` kernel), rwkv6
 and the zamba2 hybrid (their chunked scans through the hand-written
 ``linear_scan`` kernel), serving of all of them,
 and training on one device (AdamW, the WSD schedule, the synthetic data
-stream, checkpoints in ``repro``'s format and the restart supervisor).
-Entry points
+stream, checkpoints in ``repro``'s format and the restart supervisor),
+and the distribution layer: meshes on ``torch.distributed`` and the
+sharded train, prefill and serve steps (tensor, sequence and expert
+parallelism).  Entry points
 take ``device="cuda"`` by default and raise where CUDA is absent;
 ``device="cpu"`` runs the plain PyTorch path.
 The function wrappers take keyword-only arguments beyond their primary
@@ -47,7 +49,11 @@ from repro_torch.core.layout import Layout
 from repro_torch.core.layoutloop import EvalConfig
 from repro_torch.core.workloads import init_graph_weights
 from repro_torch.data import DataConfig, SyntheticLMStream, make_stream
-from repro_torch.distributed import make_train_step
+from repro_torch.distributed import (make_serve_step, make_train_step,
+                                     prefill_step, serve_step,
+                                     shardings_for_train)
+from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
+                                     make_production_mesh)
 from repro_torch.models import EncDecModel, build_model
 from repro_torch.optim import adamw_init, adamw_update, wsd_schedule
 from repro_torch.plan import (ExecutionPlan, LayerGraph, PlanCache,
@@ -133,4 +139,7 @@ __all__ = [
     "DataConfig", "SyntheticLMStream", "make_stream", "adamw_init",
     "adamw_update", "wsd_schedule", "make_train_step",
     "CheckpointManager", "TrainSupervisor",
+    # distribution
+    "init_distributed", "make_local_mesh", "make_production_mesh",
+    "shardings_for_train", "make_serve_step", "serve_step", "prefill_step",
 ]

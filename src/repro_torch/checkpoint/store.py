@@ -32,8 +32,15 @@ Fault-tolerance contract (``repro``'s):
   ``OSError`` on mismatch (bit-rot / truncation reads as an I/O fault, so
   the retry/fallback machinery handles it like one).  Checkpoints written
   before the sidecar existed restore without verification;
-* the manifest's ``sharding`` is ``""`` for every leaf: the port has no
-  mesh yet (ROADMAP Queue 1 item 10), and so no reshard-on-restore;
+* the manifest's ``sharding`` is ``""`` for every leaf of a one-device
+  save; a save from a mesh passes ``shardings=``, a tree like ``tree`` of
+  ``repro``'s ``PartitionSpec`` strings (``stepfn.checkpoint_shardings``),
+  whose leaves are whole (gathered by the caller, written by rank 0 only),
+  so the files equal a one-device save's but for those strings.  A
+  restore returns whole leaves, whatever mesh wrote them: the caller
+  places them on its own mesh (the trainer through
+  ``stepfn.local_named``, which splits the packed ``wkv`` by KV head), so
+  a checkpoint reshards on restore;
 * ``CheckpointManager`` keeps the last ``keep`` checkpoints and an async
   writer thread so the train loop never blocks on IO.  The writer retries
   transient faults (``retry_call``, site ``ckpt.write``) and on persistent
@@ -161,8 +168,13 @@ def _sha256(data: bytes) -> str:
     return hashlib.sha256(data).hexdigest()
 
 
-def save_pytree(tree: Pytree, directory: str | pathlib.Path) -> None:
+def save_pytree(tree: Pytree, directory: str | pathlib.Path,
+                shardings: Optional[Pytree] = None) -> None:
+    """Write ``tree``; ``shardings``: the manifest's sharding string of
+    each leaf, a tree of ``tree``'s structure (None: ``""``)."""
     d = pathlib.Path(directory)
+    specs = iter(leaf for _, leaf in _flatten(shardings)) \
+        if shardings is not None else None
     tmp = d.with_suffix(".tmp")
     if tmp.exists():
         shutil.rmtree(tmp)
@@ -177,7 +189,7 @@ def save_pytree(tree: Pytree, directory: str | pathlib.Path) -> None:
         digests[f"arrays/{fname}"] = _sha256(raw)
         manifest["leaves"].append(
             {"name": name, "shape": list(arr.shape), "dtype": dtype,
-             "sharding": ""})
+             "sharding": next(specs) if specs is not None else ""})
     manifest_bytes = json.dumps(manifest).encode()
     (tmp / "manifest.json").write_bytes(manifest_bytes)
     digests["manifest.json"] = _sha256(manifest_bytes)
@@ -298,7 +310,7 @@ class CheckpointManager:
         self.keep = keep
         self._io_policy = io_policy
         self._sleep = sleep
-        self._pending: Optional[Tuple[int, Pytree]] = None
+        self._pending: Optional[Tuple[int, Pytree, Optional[Pytree]]] = None
         self._lock = threading.Lock()
         self._event = threading.Event()
         self._done = threading.Event()
@@ -310,12 +322,14 @@ class CheckpointManager:
         kw = {} if self._sleep is None else {"sleep": self._sleep}
         return retry_call(fn, site=site, policy=self._io_policy, **kw)
 
-    def save(self, step: int, tree: Pytree) -> None:
+    def save(self, step: int, tree: Pytree,
+             shardings: Optional[Pytree] = None) -> None:
+        """Queue ``tree`` (``shardings``: as ``save_pytree`` takes it)."""
         leaves = [_snapshot(leaf) for _, leaf in _flatten(tree)]
         host_tree = _rebuild(tree, iter(leaves))
         with self._lock:          # cleared with the lock held, so the
             self._done.clear()    # writer cannot finish this item first
-            self._pending = (step, host_tree)
+            self._pending = (step, host_tree, shardings)
         self._event.set()
 
     def _writer(self) -> None:
@@ -328,10 +342,11 @@ class CheckpointManager:
                 if self._stop:
                     return
                 continue
-            step, tree = item
+            step, tree, specs = item
             try:
                 self._retry(
-                    lambda: save_pytree(tree, self.root / f"step_{step:08d}"),
+                    lambda: save_pytree(tree, self.root / f"step_{step:08d}",
+                                        specs),
                     site=faults.CKPT_WRITE)
                 self._gc()
             except faults.STEP_FAULT_TYPES as e:

@@ -153,3 +153,107 @@ def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (..., d_in) @ w: (d_in, d_out), one product in x's type (bf16
     products accumulate in f32 on the card, as the JAX version asks)."""
     return torch.matmul(x, w)
+
+
+# ----------------------------------------------------------- tensor parallel
+class TensorParallel:
+    """What a block needs of the mesh: the model group, whether the
+    residual stream is sequence-sharded in this call, and the local head
+    counts.  The port's counterpart of ``repro``'s ``shard_heads``: where
+    ``repro`` constrains a layout and lets GSPMD insert the collectives,
+    a block calls these helpers, each a collective with its gradient
+    (``repro_torch.distributed.collectives``).
+
+    A column-parallel product reads ``enter(h)`` (the stream all-gathered
+    along T where it is sequence-sharded, else replicated) and a
+    row-parallel one ends in ``exit(y)`` (reduce-scattered along T into
+    the sequence-sharded stream, else all-reduced): the layer-boundary
+    hook of ``repro``'s ``hidden_sharding``.  A replicated parameter used
+    on this rank's share of the work goes through ``local`` (``rep`` for
+    one used on the stream before ``enter``), which sums its gradient over
+    the group.  ``TensorParallel()`` (no mesh) is the one-device block:
+    every helper is the identity and no collective is called."""
+
+    def __init__(self, group=None, size: int = 1, rank: int = 0,
+                 seq: bool = False, attn_sharded: bool = True,
+                 split: frozenset = frozenset()):
+        self.group, self.size, self.rank = group, size, rank
+        self.seq = seq
+        #: heads split over the group; else attention runs replicated on
+        #: gathered weights
+        self.attn_sharded = attn_sharded
+        #: the leaves (``embed``, ``mu``) whose placement splits them over
+        #: the group, read from the placement table (on a group of one
+        #: too, so their collectives are called there as well)
+        self.split = split
+
+    def with_seq(self, seq: bool) -> "TensorParallel":
+        return TensorParallel(self.group, self.size, self.rank,
+                              seq and self.group is not None,
+                              self.attn_sharded, self.split)
+
+    @property
+    def on(self) -> bool:
+        return self.group is not None
+
+    def heads(self, cfg) -> Tuple[int, int]:
+        """(query heads, KV heads) this rank computes."""
+        if self.on and self.attn_sharded:
+            return cfg.n_heads // self.size, cfg.n_kv_heads // self.size
+        return cfg.n_heads, cfg.n_kv_heads
+
+    # the collectives, each the identity without a mesh
+    def enter(self, h: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed import collectives as col
+        if not self.on:
+            return h
+        if self.seq:
+            return col.all_gather(h, 1, self.group)
+        return col.copy(h, self.group)
+
+    def exit(self, y: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed import collectives as col
+        if not self.on:
+            return y
+        if self.seq:
+            return col.reduce_scatter(y, 1, self.group)
+        return col.all_reduce(y, self.group)
+
+    def local(self, w: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed import collectives as col
+        return col.copy(w, self.group) if self.on else w
+
+    def rep(self, w: torch.Tensor) -> torch.Tensor:
+        return self.local(w) if self.seq else w
+
+    def norm(self, kind: str, x: torch.Tensor, params) -> torch.Tensor:
+        """``apply_norm`` on the stream, its weights through ``rep``."""
+        if not self.seq:
+            return apply_norm(kind, x, params)
+        if kind == "rmsnorm":
+            return rmsnorm(x, self.rep(params["w"]))
+        return layernorm(x, self.rep(params["w"]), self.rep(params["b"]))
+
+    def to_replicated(self, x: torch.Tensor) -> torch.Tensor:
+        """The stream in the replicated layout, for a block every rank
+        computes whole."""
+        from repro_torch.distributed import collectives as col
+        if self.seq:
+            return col.all_gather(x, 1, self.group, replicated=True)
+        return x
+
+    def from_replicated(self, y: torch.Tensor) -> torch.Tensor:
+        from repro_torch.distributed import collectives as col
+        return col.split(y, 1, self.group) if self.seq else y
+
+    def full(self, w: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+        """A weight split over the group along ``dim``, gathered whole for
+        a replicated computation; as it is where it is not split."""
+        from repro_torch.distributed import collectives as col
+        if not self.on or w.shape[dim] == size:
+            return w
+        return col.all_gather(w, dim, self.group, replicated=True)
+
+
+#: the one-device context
+NO_TP = TensorParallel()

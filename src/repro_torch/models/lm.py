@@ -19,9 +19,23 @@ S, Hkv, dh), "length": (B,) int32}`` for attention, ``{"layers":
 {"x_prev": (L, B, D), "state": (L, B, H, hd, hd) f32}, "length"}`` for
 rwkv6, ``{"layers": {"conv": (L, B, W-1, C), "ssm": (L, B, H, state, hd)
 f32}, "length"}`` for mamba2.  Parameters are built without gradients
-(serving); a trainer turns them on (``requires_grad_(True)``).  The MoE
-experts run without expert parallelism (``repro``'s ``moe_apply_ep`` needs
-a mesh: ROADMAP Queue 1 item 10).
+(serving); a trainer turns them on (``requires_grad_(True)``).
+
+Under a mesh (``mesh``, set with the tensor-parallel context ``tp`` and
+the layer-boundary ``hook`` by ``distributed.stepfn.place_model``, which
+also swaps each parameter for its local shard) the dense, MoE and rwkv6
+stacks run tensor-parallel: the embedding is vocab-parallel (a masked
+lookup, then an all-reduce, or a reduce-scatter along T into a
+sequence-sharded stream), the head is vocab-parallel (logits ``(...,
+V/m)``) and the loss runs on the vocab-sharded logits; the MoE block is
+expert-parallel (``distributed.moe_ep``) where ``ep_applicable``, else
+each rank runs its experts and the combines are all-reduced; the
+residual stream between blocks follows ``sharding.hidden_sharding``
+(sequence-sharded in ``coswitch`` mode where T divides the model axis,
+else replicated).  ``prefill`` and ``decode_step`` take this data rank's
+rows, keep their caches in the local layout of ``cache_shardings`` (the
+``length`` of the local rows) and return the local rows' logits over the
+whole vocabulary.  With no mesh no collective is called.
 """
 from __future__ import annotations
 
@@ -36,7 +50,8 @@ from repro_torch.device import resolve_device
 
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
                      dtype_of, mlp_apply, mlp_specs, moe_apply, moe_specs)
-from .common import ParamModule, Spec, SpecTree, apply_norm, dense, norm_spec
+from .common import (NO_TP, ParamModule, Spec, SpecTree, TensorParallel,
+                     apply_norm, dense, norm_spec)
 from .ssm import (mamba2_cache_specs, mamba2_decode, mamba2_specs,
                   mamba2_train, rwkv6_cache_specs, rwkv6_decode, rwkv6_specs,
                   rwkv6_train)
@@ -128,6 +143,12 @@ class LMModel(nn.Module):
     """Uniform decoder-only stack: dense attention, RWKV6 or Mamba2
     mixers, MLPs."""
 
+    #: the mesh, its tensor-parallel context and the layer-boundary layout
+    #: (a function of T): set on the instance by ``stepfn.place_model``
+    mesh = None
+    tp: TensorParallel = NO_TP
+    hook = None
+
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         super().__init__()
         check_family(cfg)
@@ -179,46 +200,88 @@ class LMModel(nn.Module):
         return self
 
     # ---------------------------------------------------------------- forward
-    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.top.embed[tokens.long()]
+    def _tp_for(self, T: int) -> TensorParallel:
+        """The context of a call over T positions: the stream sequence-
+        sharded where the hook says so (T = 1 in decode: never for a
+        model axis above 1)."""
+        if self.mesh is None:
+            return NO_TP
+        return self.tp.with_seq(self.hook(T)[1] == "model")
 
-    def _mixer_train(self, p, x: torch.Tensor) -> torch.Tensor:
+    def _vocab_sharded(self) -> bool:
+        return self.tp.on and "embed" in self.tp.split
+
+    def _embed(self, tokens: torch.Tensor, tp: TensorParallel = NO_TP
+               ) -> torch.Tensor:
+        """The embedding rows of ``tokens`` in ``tp``'s stream layout:
+        vocab-parallel under a mesh (each rank looks up the tokens of its
+        vocabulary block, zeros elsewhere, and the group sums)."""
+        e = self.top.embed
+        if not tp.on:
+            return e[tokens.long()]
+        if not self._vocab_sharded():
+            return tp.from_replicated(e[tokens.long()])
+        V = e.shape[0]
+        t = tokens.long() - tp.rank * V
+        mine = (t >= 0) & (t < V)
+        x = e[t.clamp(0, V - 1)] * mine[..., None].to(e.dtype)
+        return tp.exit(x)
+
+    def _mixer_train(self, p, x: torch.Tensor, tp: TensorParallel = NO_TP
+                     ) -> torch.Tensor:
         if _is_rwkv(self.cfg):
-            return rwkv6_train(self.cfg, p, x)
+            return rwkv6_train(self.cfg, p, x, tp)
         if _is_mamba2(self.cfg):
             return mamba2_train(self.cfg, p, x)
-        return attn_train(self.cfg, p, x)
+        return attn_train(self.cfg, p, x, tp=tp)
 
-    def _ffn(self, layer: ParamModule, x: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, layer: ParamModule, x: torch.Tensor,
+             tp: TensorParallel = NO_TP) -> torch.Tensor:
         """The layer's MLP (or MoE block) on (B, T, D); zeros where the
-        layer has none."""
+        layer has none.  Under a mesh an MoE block is expert-parallel where
+        ``ep_applicable`` (on this rank's tokens: the sequence-sharded
+        stream, or this rank's T block of the replicated one), else each
+        rank runs its experts on the replicated stream
+        (``moe_ep.moe_apply_tp``)."""
         if self.cfg.family == "moe":
-            return moe_apply(self.cfg, layer["ffn"], x)
+            if not tp.on:
+                return moe_apply(self.cfg, layer["ffn"], x)
+            from repro_torch.distributed import moe_ep
+            from repro_torch.distributed.sharding import data_size
+            full = (x.shape[0] * data_size(self.mesh),
+                    x.shape[1] * (tp.size if tp.seq else 1))
+            if moe_ep.ep_applicable(self.cfg, self.mesh, full):
+                return moe_ep.moe_apply_ep_stream(self.cfg, layer["ffn"], x,
+                                                  self.mesh, tp)
+            return tp.from_replicated(moe_ep.moe_apply_tp(
+                self.cfg, layer["ffn"], tp.to_replicated(x), self.mesh))
         if hasattr(layer, "ffn"):
-            return mlp_apply(self.cfg, layer["ffn"], x)
+            return mlp_apply(self.cfg, layer["ffn"], x, tp)
         return torch.zeros_like(x)
 
-    def _layer_train(self, x: torch.Tensor, layer: ParamModule
-                     ) -> torch.Tensor:
-        x = x + self._mixer_train(layer["mixer"], x)
-        return x + self._ffn(layer, x)
+    def _layer_train(self, x: torch.Tensor, layer: ParamModule,
+                     tp: TensorParallel = NO_TP) -> torch.Tensor:
+        x = x + self._mixer_train(layer["mixer"], x, tp)
+        return x + self._ffn(layer, x, tp)
 
     def hidden_states(self, tokens: torch.Tensor, remat: bool = True
                       ) -> torch.Tensor:
-        """tokens: (B, T) -> final hidden (B, T, D).
+        """tokens: (B, T) -> final hidden (B, T, D) (under a mesh in the
+        stream's layout of a T-position call).
 
         ``remat``: where autograd records, each layer runs under
         ``torch.utils.checkpoint`` (its activations recomputed in the
         backward), as ``jax.checkpoint`` wraps the JAX layer scan."""
-        x = self._embed(tokens)
+        tp = self._tp_for(tokens.shape[1])
+        x = self._embed(tokens, tp)
         remat = remat and torch.is_grad_enabled()
         for layer in self.layers:
             if remat:
-                x = checkpoint(self._layer_train, x, layer,
+                x = checkpoint(self._layer_train, x, layer, tp,
                                use_reentrant=False)
             else:
-                x = self._layer_train(x, layer)
-        return apply_norm(self.cfg.norm, x, self.top.final_norm)
+                x = self._layer_train(x, layer, tp)
+        return tp.norm(self.cfg.norm, x, self.top.final_norm)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         head = self.top.embed.T if self.cfg.tie_embeddings \
@@ -227,10 +290,27 @@ class LMModel(nn.Module):
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
         """batch: {"tokens": (B, T+1)} -> mean next-token cross-entropy
-        (f32 scalar), through a sequence-chunked softmax."""
+        (f32 scalar), through a sequence-chunked softmax (under a mesh
+        over this data rank's rows, on vocab-sharded logits)."""
         tokens = batch["tokens"]
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
-        return chunked_ce_loss(self, self.hidden_states(inp), tgt)
+        hidden = self.hidden_states(inp)
+        tp = self._tp_for(inp.shape[1])
+        if not tp.on:
+            return chunked_ce_loss(self, hidden, tgt)
+        if self._vocab_sharded():
+            return chunked_ce_loss(self, tp.enter(hidden), tgt, tp=tp)
+        return chunked_ce_loss(self, tp.to_replicated(hidden), tgt)
+
+    def _logits_out(self, x: torch.Tensor, tp: TensorParallel
+                    ) -> torch.Tensor:
+        """Serving logits over the whole vocabulary: under a mesh the
+        vocab blocks of the group gathered."""
+        if not self._vocab_sharded():
+            return self.logits(x)
+        from repro_torch.distributed import collectives as col
+        return col.all_gather(self.logits(tp.enter(x)), x.dim() - 1,
+                              tp.group, replicated=True)
 
     # ---------------------------------------------------------------- serving
     def cache_specs(self, batch: int, max_seq: int) -> SpecTree:
@@ -253,26 +333,34 @@ class LMModel(nn.Module):
                 "length": ((batch,), torch.int32)}
 
     def init_cache(self, batch: int, max_seq: int) -> Dict:
-        """Zeros on the model's device, nested as ``cache_specs``."""
+        """Zeros on the model's device, nested as ``cache_specs``; under a
+        mesh ``batch`` is this data rank's rows and every leaf has its
+        local shape (``stepfn.local_cache_specs``)."""
         def zeros(tree: SpecTree) -> Dict:
             return {n: zeros(s) if isinstance(s, dict) else torch.zeros(
                 s[0], dtype=s[1], device=self.device)
                 for n, s in tree.items()}
 
-        return zeros(self.cache_specs(batch, max_seq))
+        if self.mesh is None:
+            return zeros(self.cache_specs(batch, max_seq))
+        from repro_torch.distributed.stepfn import local_cache_specs
+        return zeros(local_cache_specs(self, batch, max_seq))
 
     def _mixer_decode(self, i: int, p, x: torch.Tensor, caches: Dict,
-                      length: torch.Tensor) -> torch.Tensor:
+                      length: torch.Tensor, tp: TensorParallel = NO_TP
+                      ) -> torch.Tensor:
         """Layer ``i``'s mixer for one token; writes its cache in place."""
         if self.cfg.family in ("ssm", "hybrid"):
-            step = rwkv6_decode if _is_rwkv(self.cfg) else mamba2_decode
-            delta, new = step(self.cfg, p, x,
-                              {n: c[i] for n, c in caches.items()})
+            layer_cache = {n: c[i] for n, c in caches.items()}
+            if _is_rwkv(self.cfg):
+                delta, new = rwkv6_decode(self.cfg, p, x, layer_cache, tp)
+            else:
+                delta, new = mamba2_decode(self.cfg, p, x, layer_cache)
             for n, c in caches.items():
                 c[i].copy_(new[n])
             return delta
         delta, _, _ = attn_decode(self.cfg, p, x, caches["k"][i],
-                                  caches["v"][i], length)
+                                  caches["v"][i], length, tp=tp)
         return delta
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
@@ -282,15 +370,16 @@ class LMModel(nn.Module):
         ``length + 1``) and returns it, where the JAX version returns a new
         cache."""
         cfg = self.cfg
-        x = self._embed(tokens)
+        tp = self.tp.with_seq(False) if self.mesh is not None else NO_TP
+        x = self._embed(tokens, tp)
         length = cache["length"]
         for i, layer in enumerate(self.layers):
             x = x + self._mixer_decode(i, layer["mixer"], x, cache["layers"],
-                                       length)
+                                       length, tp)
             # the ffn runs on a (B, 1, D) pseudo-sequence, as in JAX
-            x = x + self._ffn(layer, x[:, None, :])[:, 0]
+            x = x + self._ffn(layer, x[:, None, :], tp)[:, 0]
         x = apply_norm(cfg.norm, x, self.top.final_norm)
-        logits = self.logits(x)
+        logits = self._logits_out(x, tp)
         length.add_(1)
         return cache, logits
 
@@ -305,39 +394,80 @@ class LMModel(nn.Module):
         ``decode_step`` instead).  ``length`` is T."""
         cfg = self.cfg
         B, T = tokens.shape
-        x = self._embed(tokens)
+        tp = self.tp.with_seq(False) if self.mesh is not None else NO_TP
+        x = self._embed(tokens, tp)
         cache = self.init_cache(B, max_seq)
         if cfg.family == "ssm":
             for layer in self.layers:
-                x = self._layer_train(x, layer)
+                x = self._layer_train(x, layer, tp)
         else:
             ks, vs = cache["layers"]["k"], cache["layers"]["v"]
             for i, layer in enumerate(self.layers):
-                delta, (k, v) = attn_prefill(cfg, layer["mixer"], x)
+                delta, (k, v) = attn_prefill(cfg, layer["mixer"], x, tp=tp)
                 x = x + delta
-                x = x + self._ffn(layer, x)
+                x = x + self._ffn(layer, x, tp)
                 ks[i, :, :T] = k
                 vs[i, :, :T] = v
         x = apply_norm(cfg.norm, x, self.top.final_norm)
-        logits = self.logits(x[:, -1])
+        logits = self._logits_out(x[:, -1], tp)
         cache["length"].fill_(T)
         return cache, logits
 
 
-def _ce_chunk(model: LMModel, h: torch.Tensor, t: torch.Tensor
-              ) -> torch.Tensor:
+class _CrossEntropy(torch.autograd.Function):
+    """Per-position ``logsumexp(logits) - logits[target]`` over logits that
+    may be split by vocabulary block over ``group`` (``lo`` this rank's
+    first id): the max, the sum of exps and the target's logit are
+    reduced over the group (Megatron's vocab-parallel cross-entropy).
+    Without a group it is the one-device loss, in the same arithmetic:
+    the backward is ``softmax - onehot``, ``softmax = exp(logits -
+    lse)``, as ``torch.logsumexp``'s is."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, group, lo):
+        from repro_torch.distributed import collectives as col
+        V = logits.shape[-1]
+        mx = logits.amax(dim=-1)
+        if group is not None:
+            mx = col.all_reduce_max(mx, group)
+        se = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+        t = targets.long() - lo
+        mine = (t >= 0) & (t < V)
+        tc = t.clamp(0, V - 1)
+        picked = torch.gather(logits, -1, tc[..., None])[..., 0] * mine
+        if group is not None:
+            se = col._all_reduce(se, group)
+            picked = col._all_reduce(picked, group)
+        lse = mx + torch.log(se)
+        ctx.save_for_backward(logits, lse, tc, mine)
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, tc, mine = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None])
+        grad.scatter_add_(-1, tc[..., None],
+                          -mine[..., None].to(grad.dtype))
+        return grad * g[..., None], None, None, None
+
+
+def _ce_chunk(model: LMModel, h: torch.Tensor, t: torch.Tensor,
+              tp: TensorParallel = NO_TP) -> torch.Tensor:
     logits = model.logits(h).float()
-    lse = torch.logsumexp(logits, dim=-1)
-    picked = torch.gather(logits, -1, t.long()[..., None])[..., 0]
-    return torch.sum(lse - picked)
+    group = tp.group if tp.on else None
+    lo = tp.rank * logits.shape[-1] if tp.on else 0
+    return torch.sum(_CrossEntropy.apply(logits, t, group, lo))
 
 
 def chunked_ce_loss(model: LMModel, hidden: torch.Tensor,
-                    targets: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+                    targets: torch.Tensor, chunk: int = 512,
+                    tp: TensorParallel = NO_TP) -> torch.Tensor:
     """Cross-entropy without materialising the full (B, T, V) logits: the
     sequence in chunks of ``chunk`` positions, each under
     ``torch.utils.checkpoint`` where autograd records (the backward
-    recomputes a chunk's logits — flash-CE), summed in order."""
+    recomputes a chunk's logits — flash-CE), summed in order.  With a
+    ``tp`` context the logits are this rank's vocabulary block of
+    ``hidden`` (which every rank holds whole)."""
     B, T, D = hidden.shape
     chunk = min(chunk, T)
     if T % chunk:
@@ -347,8 +477,8 @@ def chunked_ce_loss(model: LMModel, hidden: torch.Tensor,
     for lo in range(0, T, chunk):
         h, t = hidden[:, lo:lo + chunk], targets[:, lo:lo + chunk]
         if torch.is_grad_enabled():
-            total = total + checkpoint(_ce_chunk, model, h, t,
+            total = total + checkpoint(_ce_chunk, model, h, t, tp,
                                        use_reentrant=False)
         else:
-            total = total + _ce_chunk(model, h, t)
+            total = total + _ce_chunk(model, h, t, tp)
     return total / (B * T)

@@ -9,6 +9,14 @@ attention recurrence of the scan.  Mamba2 shares its ``B``/``C`` and decay
 across the heads; the JAX code broadcasts them to the scan's per-head
 operands, and so does the port, made contiguous, since the kernel takes
 contiguous operands (the log decay stays f32, as the kernel asks).
+
+Under a mesh RWKV6 is tensor-parallel over heads (a ``TensorParallel``
+context, ``tp``): ``wr``/``wk``/``wv``/``wg`` column-parallel, ``w0``,
+``u`` and the decode state ``(B, H/m, dk, dv)`` local, the scan on the
+local heads; the decay LoRA's ``w1`` column-parallel over its rank-64
+hidden and ``w2`` row-parallel, reduce-scattered onto the local heads'
+channels; ``ln_x``, an rmsnorm over the whole ``di``, sums its squares
+over the group; ``wo`` row-parallel.  Mamba2 runs on one device only.
 """
 from __future__ import annotations
 
@@ -21,7 +29,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 
 from .blocks import dtype_of
-from .common import SpecTree, apply_norm, dense, norm_spec
+from .common import (NO_TP, SpecTree, TensorParallel, apply_norm, dense,
+                     norm_spec)
 
 _LORA_RANK = 64
 
@@ -154,22 +163,50 @@ def rwkv6_specs(cfg: ArchConfig) -> SpecTree:
         "w1": ((D, _LORA_RANK), dt),
         "w2": ((_LORA_RANK, di), dt),
         "u": ((di,), f32),                    # current-token bonus
-        "ln_x": norm_spec("rmsnorm", di, dt),  # per-head group norm
+        "ln_x": norm_spec("rmsnorm", di, dt),  # rmsnorm over all of di
         "wo": ((di, D), dt),
     }
 
 
 def _rwkv6_project(cfg: ArchConfig, p, x: torch.Tensor,
-                   x_prev: torch.Tensor):
-    """Token-shift mix then project.  x, x_prev: (B, T, D)."""
-    mixed = [x + (x_prev - x) * p["mu"][i] for i in range(5)]
+                   x_prev: torch.Tensor, tp: TensorParallel = NO_TP):
+    """Token-shift mix then project.  x, x_prev: (B, T, D); r, k, v, logw
+    and g of this rank's channels.  ``repro``'s rules split ``mu`` over
+    the model axis along D (its ``u$`` rule matches), so it is gathered
+    whole for the mix."""
+    mu = p["mu"]
+    if "mu" in tp.split:
+        from repro_torch.distributed import collectives as col
+        mu = col.all_gather(mu, 1, tp.group)
+    else:
+        mu = tp.local(mu)
+    mixed = [x + (x_prev - x) * mu[i] for i in range(5)]
     r = dense(mixed[0], p["wr"])
     k = dense(mixed[1], p["wk"])
     v = dense(mixed[2], p["wv"])
-    logw = -torch.exp(p["w0"] + dense(torch.tanh(dense(mixed[3], p["w1"])),
-                                      p["w2"]).float())
+    lora = dense(torch.tanh(dense(mixed[3], p["w1"])), p["w2"])
+    if tp.on:
+        from repro_torch.distributed import collectives as col
+        lora = col.reduce_scatter(lora, -1, tp.group)
+    logw = -torch.exp(p["w0"] + lora.float())
     g = F.silu(dense(mixed[4], p["wg"]))
     return r, k, v, logw, g
+
+
+def _ln_x(cfg: ArchConfig, p, y: torch.Tensor, tp: TensorParallel
+          ) -> torch.Tensor:
+    """The rmsnorm over all of ``di`` on this rank's channels of it: the
+    mean square summed over the group."""
+    if not tp.on:
+        return apply_norm("rmsnorm", y, p["ln_x"])
+    from repro_torch.distributed import collectives as col
+    di = _dims(cfg)[0]
+    n = y.shape[-1]
+    y32 = y.float()
+    part = torch.mean(y32 * y32, dim=-1, keepdim=True) * (n / di)
+    var = col.copy(col.all_reduce(part, tp.group), tp.group)
+    w = tp.local(p["ln_x"]["w"]).narrow(0, tp.rank * n, n)
+    return (y32 * torch.rsqrt(var + 1e-5)).to(y.dtype) * w
 
 
 def _shift(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -178,13 +215,24 @@ def _shift(t: torch.Tensor, dim: int) -> torch.Tensor:
                       t.narrow(dim, 0, t.shape[dim] - 1)], dim=dim)
 
 
-def rwkv6_train(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, T, D) -> (B, T, D) residual delta, the scan through
-    ``ops.linear_scan``."""
-    B, T, D = x.shape
-    di, _, heads, headdim = _dims(cfg)
-    h = apply_norm(cfg.norm, x, p["norm"])
-    r, k, v, logw, g = _rwkv6_project(cfg, p, h, _shift(h, 1))
+def _local_heads(cfg: ArchConfig, tp: TensorParallel) -> Tuple[int, int]:
+    """(heads, channels) this rank computes."""
+    _, _, heads, headdim = _dims(cfg)
+    if tp.on:
+        heads //= tp.size
+    return heads, heads * headdim
+
+
+def rwkv6_train(cfg: ArchConfig, p, x: torch.Tensor,
+                tp: TensorParallel = NO_TP) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D) residual delta (in the stream's layout
+    under a mesh), the scan through ``ops.linear_scan`` on this rank's
+    heads."""
+    _, _, _, headdim = _dims(cfg)
+    heads, di = _local_heads(cfg, tp)
+    h = tp.enter(tp.norm(cfg.norm, x, p["norm"]))
+    B, T, D = h.shape
+    r, k, v, logw, g = _rwkv6_project(cfg, p, h, _shift(h, 1), tp)
 
     def split(t):
         return t.reshape(B, T, heads, headdim).transpose(1, 2)
@@ -200,8 +248,8 @@ def rwkv6_train(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     bonus = torch.sum(rh * u[None, :, None, :].to(x.dtype) * kh, dim=-1,
                       keepdim=True) * vh
     y = (y + bonus).transpose(1, 2).reshape(B, T, di)
-    y = apply_norm("rmsnorm", y, p["ln_x"]) * g
-    return dense(y, p["wo"])
+    y = _ln_x(cfg, p, y, tp) * g
+    return tp.exit(dense(y, p["wo"]))
 
 
 def rwkv6_cache_specs(cfg: ArchConfig, batch: int) -> SpecTree:
@@ -210,15 +258,21 @@ def rwkv6_cache_specs(cfg: ArchConfig, batch: int) -> SpecTree:
             "state": ((batch, heads, headdim, headdim), torch.float32)}
 
 
-def rwkv6_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict
-                 ) -> Tuple[torch.Tensor, Dict]:
+def rwkv6_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict,
+                 tp: TensorParallel = NO_TP) -> Tuple[torch.Tensor, Dict]:
     """One step.  x: (B, D); cache: {x_prev (B, D), state (B, H, hd, hd)}.
-    Returns (residual delta (B, D), new cache), as the JAX version does."""
+    Returns (residual delta (B, D), new cache), as the JAX version does.
+    Under a mesh the cache holds this rank's (B, D/m) of ``x_prev`` and
+    (B, H/m, hd, hd) of the state, as ``cache_shardings`` places them."""
     B, D = x.shape
-    di, _, heads, headdim = _dims(cfg)
-    h = apply_norm(cfg.norm, x, p["norm"])
-    r, k, v, logw, g = _rwkv6_project(cfg, p, h[:, None],
-                                      cache["x_prev"][:, None])
+    _, _, _, headdim = _dims(cfg)
+    heads, di = _local_heads(cfg, tp)
+    h = tp.enter(apply_norm(cfg.norm, x, p["norm"]))
+    prev = cache["x_prev"]
+    if tp.on:
+        from repro_torch.distributed import collectives as col
+        prev = col.all_gather(prev, 1, tp.group, replicated=True)
+    r, k, v, logw, g = _rwkv6_project(cfg, p, h[:, None], prev[:, None], tp)
     r, k, v, logw, g = r[:, 0], k[:, 0], v[:, 0], logw[:, 0], g[:, 0]
 
     def split(t):
@@ -232,5 +286,10 @@ def rwkv6_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict
     y = torch.einsum("bhk,bhkd->bhd", rh.float(), wkv)
     new_state = cache["state"] * wh[..., :, None] + kv
     y = y.to(x.dtype).reshape(B, di)
-    y = apply_norm("rmsnorm", y, p["ln_x"]) * g
-    return dense(y, p["wo"]), {"x_prev": h, "state": new_state}
+    y = _ln_x(cfg, p, y, tp) * g
+    new_prev = h
+    if tp.on:
+        from repro_torch.distributed import collectives as col
+        new_prev = col.split(h, 1, tp.group)
+    return tp.exit(dense(y, p["wo"])), {"x_prev": new_prev,
+                                        "state": new_state}

@@ -11,7 +11,7 @@ host integer.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Tuple
+from typing import Callable, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,12 +42,18 @@ def adamw_init(params: Params) -> AdamWState:
                 for n, p in params.items()})
 
 
-def clip_by_global_norm(grads: Params, max_norm: float
+def clip_by_global_norm(grads: Params, max_norm: float,
+                        reduce: Optional[Callable] = None
                         ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
     """``grads`` scaled (in f32) so their global L2 norm is at most
-    ``max_norm``, and that norm before scaling."""
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                           for g in grads.values()))
+    ``max_norm``, and that norm before scaling.  ``reduce`` maps the list
+    of per-leaf sums of squares to the whole tensors' (a sharded step
+    sums each over the ranks that split its leaf); they are added in leaf
+    order."""
+    sq = [torch.sum(torch.square(g.float())) for g in grads.values()]
+    if reduce is not None:
+        sq = reduce(sq)
+    gnorm = torch.sqrt(sum(sq))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     return {n: g.float() * scale for n, g in grads.items()}, gnorm
 
@@ -56,12 +62,14 @@ def clip_by_global_norm(grads: Params, max_norm: float
 def adamw_update(grads: Params, state: AdamWState, params: Params,
                  lr: float, *, b1: float = 0.9, b2: float = 0.95,
                  eps: float = 1e-8, weight_decay: float = 0.1,
-                 max_grad_norm: float = 1.0) -> Tuple[Params, AdamWState]:
+                 max_grad_norm: float = 1.0,
+                 reduce: Optional[Callable] = None
+                 ) -> Tuple[Params, AdamWState]:
     """One AdamW step over every name of ``params``; returns (params,
     state), both updated in place.  Runs under the profiler range
-    ``UPDATE_RANGE``."""
+    ``UPDATE_RANGE``.  ``reduce``: as ``clip_by_global_norm`` takes it."""
     with torch.profiler.record_function(UPDATE_RANGE):
-        grads, _ = clip_by_global_norm(grads, max_grad_norm)
+        grads, _ = clip_by_global_norm(grads, max_grad_norm, reduce)
         state.step += 1
         f32 = np.float32
         b1c = float(1 - f32(b1) ** f32(state.step))

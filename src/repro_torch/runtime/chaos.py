@@ -24,9 +24,11 @@ heartbeat, serve-queue admission), asserting the three robustness claims:
 The checkpoint phase includes the kill-between-write-and-rename case: a
 save whose retries are all injected leaves the previous committed
 checkpoint fully restorable.  ``--report`` writes a JSON summary (counters,
-per-site injection counts, resolved tiers).  Where ``repro`` runs the LM
-phase inside a one-device mesh, the port has no mesh yet (ROADMAP Queue 1
-item 10) and runs on the device alone.  The port's ``decode_step`` writes
+per-site injection counts, resolved tiers).  The LM phase runs on
+``make_local_mesh(1)``, as ``repro``'s does: the model is placed on that
+one-rank mesh (``nccl`` on cuda, ``gloo`` on cpu), so its decode steps
+run the sharded path and call their collectives.  The port's
+``decode_step`` writes
 its cache in place, so each decode pass starts from its own copy of the
 prefilled cache, and the faulted step fires its fault before it touches
 the cache, which makes its retry safe.  The LM's weights and prompts come
@@ -218,6 +220,8 @@ def _serve_phase(args, tmp: pathlib.Path) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.core.layoutloop import EvalConfig
+    from repro_torch.distributed.stepfn import place_model
+    from repro_torch.launch.mesh import make_local_mesh
     from repro_torch.models import build_model
     from repro_torch.plan import (ExecutionPlan, PlanCache, PlannerOptions,
                                   from_arch_config, resolve_plan)
@@ -240,6 +244,7 @@ def _serve_phase(args, tmp: pathlib.Path) -> dict:
 
     model = build_model(cfg, device=args.device)
     model.init(torch.Generator(device=model.device).manual_seed(0))
+    place_model(model, make_local_mesh(1, model.device), "fixed")
     prompts = torch.randint(0, cfg.vocab, (B, prompt_len),
                             generator=torch.Generator().manual_seed(1),
                             dtype=torch.int32).to(model.device)

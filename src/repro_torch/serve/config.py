@@ -5,9 +5,11 @@ The port's copy of ``repro.serve.config``, shared by the CLI
 repro_torch.launch.serve``), the engine (``ServeEngine(config)``),
 ``chip_smoke.py`` and the tests, with the JAX package's ``use_pallas``
 switch replaced by ``device`` ("cuda" by default, "cpu" for the plain
-path; the CLI's ``--device``).  ``model_axis`` comes with the mesh
-(ROADMAP Queue 1 item 10): the CLI takes ``--model-axis`` and raises
-``NotImplementedError`` above 1.
+path; the CLI's ``--device``).  The engine serves on one device: the CLI
+takes ``--model-axis`` and raises ``NotImplementedError`` above 1, pointing
+at ``repro_torch.distributed.serve_step``/``prefill_step``, the sharded
+serve steps.  ``repro``'s engine builds a mesh but runs its unsharded
+decode step inside it, a mesh with no model parallelism (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
@@ -126,9 +128,10 @@ class ServeConfig:
     def from_args(args: argparse.Namespace) -> "ServeConfig":
         """Build the config from parsed CLI args (LM mode by default)."""
         if args.model_axis > 1:
-            raise NotImplementedError("--model-axis > 1: the mesh is not "
-                                      "ported yet: ROADMAP.md Queue 1 "
-                                      "item 10")
+            raise NotImplementedError(
+                "--model-axis > 1: the serve engine runs on one device; "
+                "sharded serving is repro_torch.distributed.serve_step and "
+                "prefill_step (ROADMAP.md Queue 3)")
         arch = args.arch
         if arch is None and args.graph is None:
             arch = "llama3p2_3b"

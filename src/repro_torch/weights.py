@@ -15,8 +15,8 @@ port's ``param_specs``.
 """
 from __future__ import annotations
 
-from typing import (Any, Dict, Iterator, List, Mapping, NamedTuple,
-                    Optional, Sequence, Tuple)
+from typing import (Any, Callable, Dict, Iterator, List, Mapping,
+                    NamedTuple, Optional, Sequence, Tuple)
 
 import numpy as np
 import torch
@@ -239,11 +239,10 @@ def to_torch_adamw_state(tree, cfg: ArchConfig,
         master=_unstack(tree.master, cfg, dev, torch.float32))
 
 
-def repro_lm_template(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
-                      ) -> Dict:
-    """``to_repro_lm_params``'s layout as uninitialised numpy arrays of its
-    shapes, in ``dtype`` (None: each parameter's own), a restore template
-    that holds no data."""
+def repro_layout(cfg: ArchConfig, leaf: Callable) -> Dict:
+    """``to_repro_lm_params``' nested layout with ``leaf(name, shape,
+    dtype)`` at each leaf: the port's name of the leaf (of its layer 0
+    where it is stacked), its shape with the layer axis, its dtype."""
     specs = param_specs(cfg)
     stacks = _stacks(cfg)
     tree: Dict = {}
@@ -251,11 +250,22 @@ def repro_lm_template(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
         shape, spec_dtype = specs[name]
         if layer is not None:
             shape = (stacks[layer[0]],) + tuple(shape)
+        _put(tree, path, leaf(name, tuple(shape), spec_dtype))
+    return tree
+
+
+def repro_lm_template(cfg: ArchConfig, dtype: Optional[torch.dtype] = None
+                      ) -> Dict:
+    """``to_repro_lm_params``'s layout as uninitialised numpy arrays of its
+    shapes, in ``dtype`` (None: each parameter's own), a restore template
+    that holds no data."""
+    def empty(name, shape, spec_dtype):
         dt = dtype or spec_dtype
         np_dtype = np.dtype("V2") if dt == torch.bfloat16 else \
             torch.empty((), dtype=dt).numpy().dtype
-        _put(tree, path, np.empty(shape, np_dtype))
-    return tree
+        return np.empty(shape, np_dtype)
+
+    return repro_layout(cfg, empty)
 
 
 def repro_adamw_template(cfg: ArchConfig) -> ReproAdamWState:

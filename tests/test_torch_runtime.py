@@ -342,7 +342,7 @@ def test_serve_cli_lm_mode_on_the_cpu(capsys):
 
 
 def test_serve_cli_refuses_what_is_not_ported(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(NotImplementedError, match="distributed.serve_step"):
         serve_cli.main(["--graph", "tiny", "--model-axis", "2", "--device",
                         "cpu"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

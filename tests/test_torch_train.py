@@ -295,10 +295,10 @@ def test_launcher_trains_on_the_cpu():
 def test_launcher_refuses_what_is_not_ported(monkeypatch):
     base = ["--arch", "rwkv6_1p6b", "--smoke", "--device", "cpu",
             "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         launch_train.main(base + ["--model-axis", "2"])
     with pytest.raises(SystemExit):
-        launch_train.main(base + ["--layout-mode", "coswitch"])
+        launch_train.main(base + ["--layout-mode", "diagonal"])
     assert launch_train.parse_args([]).device == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
