@@ -180,7 +180,22 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     4 steps of ``make_train_step(model, mesh, layout_mode=...)`` in
     ``coswitch`` and in ``fixed`` against the one-device step from the
     same weights, losses within 1e-6 relative, 4 ``linear_scan`` launches
-    a step.
+    a step; the step runs ZeRO-1 (every leaf's state a data block, whole
+    at one rank: the gradients reduce-scattered onto it, the parameters
+    all-gathered from it).
+24. Analysis: three cells of ``repro_torch.launch.dryrun`` (llama3.2-3b
+    and dbrx-132b ``train_4k``, phi3-mini ``decode_32k``, on a fake 16x16
+    world, one microbatch), each in a subprocess with its own time limit,
+    their per-device bytes, FLOPs, collective bytes by kind and roofline
+    terms printed; ``core.trace_cost.Counter`` on the card's real steps at
+    full width (the llama3.2-3b decode step at phase 8's shape, one
+    rwkv6-1.6b train step at phase 11's), each counted again on fake CUDA
+    tensors of the same shapes (equal, bit for bit) and held against its
+    profiled device time (at least 0.95 x its roofline bound on the
+    data-sheet rates), its peak of live bytes beside
+    ``max_memory_allocated`` less the arguments; and the host cost of
+    ``ops.gqa_decode``, a registered ``torch.library`` operator, against
+    the kernel's binding called directly, over 1,000 calls.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -194,6 +209,7 @@ import dataclasses
 import itertools
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -203,11 +219,6 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# NVIDIA H100 SXM data sheet: fp32 on the CUDA cores, bf16 on the tensor
-# cores, and HBM3 bandwidth
-FP32_PEAK_FLOPS = 67e12
-BF16_PEAK_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
 # the spin that holds the card while ``queued_ms`` issues its calls:
 # ~0.1 s at the H100's 1.98 GHz boost clock
 QUEUE_SPIN_CYCLES = 200_000_000
@@ -368,6 +379,15 @@ MESH_TRAIN_LAYERS = 2
 MESH_TRAIN_STEPS = 4
 MESH_TRAIN_REL = 1e-6
 MESH_EP_REL = 2.0 ** -8   # one bf16 rounding of max |out|
+# phase 24 (analysis): the dry-run's cells, each a subprocess of its own
+# (the fake world of 256 ranks cannot share a process with phase 23's NCCL
+# group), traced with one microbatch
+DRY_CELLS = (("llama3p2_3b", "train_4k"), ("dbrx_132b", "train_4k"),
+             ("phi3_mini_3p8b", "decode_32k"))
+DRY_ACCUM = 1
+DRY_TIMEOUT_S = 300
+ROOF_MIN = 0.95           # device time >= ROOF_MIN x the step's bound
+GQA_HOST_CALLS = 1000
 
 
 def log(msg: str) -> None:
@@ -472,23 +492,15 @@ def queued_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes: float, ops_: float, peak: float) -> dict:
-    """The least time the card could take: the bytes over the memory rate
-    or the operations over ``peak``, whichever is larger."""
-    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    op_ms = ops_ / peak * 1e3
-    return {"bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "byte_ms": byte_ms, "op_ms": op_ms}
-
-
 def gqa_bound(B, Hq, Hkv, D, n_valid) -> dict:
-    """``gqa_decode``'s bound in bf16: the valid K/V rows, q and the output
-    moved once, the int32 lengths read; q.k and p.v, 2 FLOP a MAC."""
-    nbytes = 2.0 * (2 * n_valid * Hkv * D + 2 * B * Hq * D) + 4 * B
-    flops = 4.0 * n_valid * Hq * D
-    return {**bound(nbytes, flops, BF16_PEAK_FLOPS),
-            "mbytes": nbytes / 1e6, "mflop": flops / 1e6}
+    """``gqa_decode``'s bound in bf16 (``gqa_decode.work`` over the
+    ``n_valid`` K/V rows the lengths cover, on the data sheet's rates
+    that the dry-run divides by too: ``core.gpu_cost.bound_ms``)."""
+    from repro_torch.core import gpu_cost
+    from repro_torch.kernels import gqa_decode as gk
+    w = gk.work(B, Hq, Hkv, D, n_valid, 2)
+    return {**gpu_cost.bound_ms(w), "mbytes": w.bytes / 1e6,
+            "mflop": w.flops / 1e6}
 
 
 def gqa_per_step(cfg) -> int:
@@ -688,6 +700,7 @@ def phase_kernel_resnet(torch, api, ops, ref, rk, nets) -> dict:
     ``torch.matmul`` queued behind a spin kernel), with the CUDA events
     around back-to-back calls beside as ``event_ms``.  Then the split-K
     shape's rows against the same rows inside the batch, bit for bit."""
+    from repro_torch.core import gpu_cost
     graph, plan = nets["resnet50"]
     weights = api.init_graph_weights(list(graph.layers), seed=0)
     prepared = api.prepare_network(plan, graph, weights, device=DEV)
@@ -716,11 +729,10 @@ def phase_kernel_resnet(torch, api, ops, ref, rk, nets) -> dict:
         # the bound counts the work the layer needs: its own output width,
         # not the columns the weight is padded with to whole perm blocks
         N = st.wl.M
-        flops = 2.0 * M * K * N
-        nbytes = 4.0 * (M * K + K * N + M * N + (M * N if fused else 0)
-                        + len(perm))
-        flop_ms = flops / FP32_PEAK_FLOPS * 1e3
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        work = rk.work(M, K, N, 4, fused, len(perm))
+        flops, nbytes = work.flops, work.bytes
+        bd = gpu_cost.bound_ms(work)
+        flop_ms, byte_ms = bd["op_ms"], bd["byte_ms"]
         call = lambda: ops.rir_matmul(  # noqa: E731
             a, b, perm_t, residual=r, block_n=bn)
         cut = rk.launch_plan(M, K, b.shape[1], bn)
@@ -1201,30 +1213,16 @@ def scan_inputs(torch, b, h, t, dk, dv, dtype, seed, decay=None):
     return q, k, v, w
 
 
-def scan_work(B, H, T, dk, dv) -> float:
-    """The f32 operations the chunked scan needs, 2 for each multiply-add
-    of its four products in every chunk of L steps: ``(q e^cum) h`` and the
-    state update ``(k e^(cum_L - cum))^T v`` (L dk dv each), the masked
-    scores over the pairs s <= t (L (L + 1) / 2 dk) and ``S v`` (the same
-    pairs, dv).  Exps, the decay factors and the kernel's sub-chunk
-    factorisation are left out; a ragged last chunk counts its real steps
-    only."""
-    L = 64
-    work = 0
-    for lo in range(0, T, L):
-        n = min(L, T - lo)
-        work += 2 * (2 * n * dk * dv + n * (n + 1) // 2 * (dk + dv))
-    return float(B * H * work)
-
-
 def scan_bound(q, k, v, w, out) -> dict:
-    """``linear_scan``'s bound: its operands read once and ``out`` written
-    once, against ``scan_work``'s operations at the fp32 rate."""
-    nbytes = float(sum(x.numel() * x.element_size()
-                       for x in (q, k, v, w, out)))
-    flops = scan_work(*q.shape, v.shape[-1])
-    return {**bound(nbytes, flops, FP32_PEAK_FLOPS),
-            "gflop": flops / 1e9, "gbytes": nbytes / 1e9}
+    """``linear_scan``'s bound (``linear_scan.work``): its operands read
+    once and the output (``out``: v's shape and type) written once,
+    against its operations at the fp32 rate."""
+    from repro_torch.core import gpu_cost
+    from repro_torch.kernels import linear_scan as lk
+    work = lk.work(*q.shape, v.shape[-1], q.element_size(),
+                   w.element_size())
+    return {**gpu_cost.bound_ms(work), "gflop": work.flops / 1e9,
+            "gbytes": work.bytes / 1e9}
 
 
 def scan_times(torch, ops, ref, kernels, q, k, v, w) -> dict:
@@ -1331,6 +1329,7 @@ def phase_train(torch, api, lk, obs) -> dict:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    from repro_torch.core import gpu_cost
     from repro_torch.kernels.ops import BACKWARD_RANGE
     from repro_torch.optim.adamw import UPDATE_RANGE
     gc.collect()
@@ -1407,7 +1406,7 @@ def phase_train(torch, api, lk, obs) -> dict:
            "tokens_per_s": tokens / (steady / 1e3),
            "peak_mem_gb": peak_gb,
            "bf16_peak_share_6NT": 6.0 * n_params * tokens
-           / (steady / 1e3) / BF16_PEAK_FLOPS,
+           / (steady / 1e3) / gpu_cost.BF16_PEAK_FLOPS,
            "scan_launches": launches, "scan_launches_per_step": want,
            "profiled_step_wall_ms": prof_wall_s * 1e3,
            "device_busy_ms": busy_ms,
@@ -1696,6 +1695,7 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
     import math
 
     import numpy as np
+    from repro_torch.core import gpu_cost
     from repro_torch.core.birrd import Birrd
     before = (bk.switch_launch_count(), bk.launch_count())
     n = 0
@@ -1800,11 +1800,12 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
                          iters=20, warmup=3)
     library_ms = queued_ms(lambda: torch.matmul(P, x))
     S = mats.shape[0]
-    nbytes = 2.0 * aw * d * x.element_size()
     # the function's own work: one addition a wire and stage whose row of
     # the routed program holds two entries (the others are copies)
-    adds = float((mats != 0).sum(dim=-1).gt(1).sum()) * d
-    bd = bound(nbytes, adds, FP32_PEAK_FLOPS)
+    work = bk.work(aw, d, x.element_size(), bk.program_adds(
+        aw, bk._routed_configs(aw, tuple(gids), tuple(ports))))
+    nbytes, adds = work.bytes, work.flops
+    bd = gpu_cost.bound_ms(work)
     dense_flops = 2.0 * S * aw * aw * d      # what the dense FMA loop does
     rec = {"aw": aw, "d": d, "stages": S, "dtype": "f32",
            "max_abs_err": err, "ms": ms, "event_ms": event_ms,
@@ -1817,7 +1818,7 @@ def phase_birrd(torch, ops, ref, bk) -> dict:
            "library_ms": library_ms, **bd,
            "mbytes": nbytes / 1e6, "madds": adds / 1e6,
            "dense_gflop": dense_flops / 1e9,
-           "dense_fp32_ms": dense_flops / FP32_PEAK_FLOPS * 1e3,
+           "dense_fp32_ms": dense_flops / gpu_cost.FP32_PEAK_FLOPS * 1e3,
            "dense_tflop_s": dense_flops / (dense_ms * 1e-3) / 1e12,
            "achieved_gb_s": nbytes / (ms * 1e-3) / 1e9,
            "dense_gb_s": nbytes / (dense_ms * 1e-3) / 1e9,
@@ -3052,7 +3053,11 @@ def phase_mesh(torch, api, gk, lk, moe) -> dict:
         ms = (time.perf_counter() - t0) * 1e3 / (MESH_TRAIN_STEPS - 1)
         out = {"losses": losses, "step_ms_after_the_first": ms,
                "scan_launches": lk.launch_count(),
-               "collectives": dict(col.CALLS)}
+               "collectives": dict(col.CALLS),
+               "collective_bytes": {f"{k}/{d}": b for (k, d), b in
+                                    col.BYTES.items()},
+               "zero1_leaves": sum(getattr(p, "zero1", None) is not None
+                                   for p in model.params().values())}
         del model, opt, step
         gc.collect()
         torch.cuda.empty_cache()
@@ -3076,12 +3081,235 @@ def phase_mesh(torch, api, gk, lk, moe) -> dict:
                                  f"device {base['losses']}")
         if got["collectives"]["all_reduce"] == 0:
             raise AssertionError(f"{mode}: no collective called")
-    if tr["coswitch"]["collectives"]["reduce_scatter"] == 0:
-        raise AssertionError("coswitch reduce-scattered nothing")
+        if got["zero1_leaves"] == 0:
+            raise AssertionError(f"{mode}: no ZeRO-1 block placed")
+    # both modes reduce-scatter the gradients onto their ZeRO-1 blocks;
+    # coswitch also reduce-scatters the stream (at one rank the data and
+    # model groups are one group, so the calls tell them apart)
+    if not tr["coswitch"]["collectives"]["reduce_scatter"] > \
+            tr["fixed"]["collectives"]["reduce_scatter"]:
+        raise AssertionError("coswitch reduce-scattered the stream nowhere")
     log("[mesh rwkv6] " + json.dumps(tr))
     rec["rwkv6"] = tr
     rec["dbrx_ep"] = {k: moe["dbrx_132b"]["ep_mesh"][k] for k in
                       ("max_abs_err", "ref_max_abs", "collectives")}
+    return rec
+
+
+def dry_cells() -> list:
+    """Start the dry-run's cells (``DRY_CELLS``), one process each, all at
+    once; returns ``(cell, process, out path)``."""
+    import os
+    out = pathlib.Path(tempfile.mkdtemp(prefix="dryrun-"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRY_CELLS:
+        path = out / f"{arch}-{shape}.json"
+        procs.append(((arch, shape), subprocess.Popen(
+            [sys.executable, "-W", "ignore", "-m",
+             "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+             "--accum", str(DRY_ACCUM), "--out", str(path)],
+            env=env, cwd=str(ROOT), stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True), path))
+    return procs
+
+
+def counted(torch, counter_cls, fn) -> dict:
+    """``fn()`` under ``trace_cost.Counter``: its counts."""
+    with counter_cls() as c:
+        fn()
+    return c.counts
+
+
+def roofline_share(torch, counts, fn) -> dict:
+    """The step ``fn()``'s device time (its profiled kernels' sum) against
+    the roofline bound of ``counts`` on the H100's data-sheet rates: the
+    share must stay at or below 1 / ``ROOF_MIN`` (a larger one means the
+    count claims more work than the card did)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import gpu_cost
+    terms = gpu_cost.terms_from_counts(counts.flops, counts.bytes, {}, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    _, busy_ms = device_time_by_kernel(prof)
+    bound = terms.bound_s * 1e3
+    share = bound / busy_ms
+    if busy_ms < ROOF_MIN * bound:
+        raise AssertionError(f"device {busy_ms:.3f} ms below {ROOF_MIN} x "
+                             f"the bound {bound:.3f} ms: the count is wrong")
+    return {"device_ms": busy_ms, "bound_ms": bound,
+            "bound_by": terms.dominant, "share_of_bound": share,
+            "compute_ms": terms.compute_s * 1e3,
+            "memory_ms": terms.memory_s * 1e3}
+
+
+def same_counts(name: str, real, fake) -> None:
+    a, b = real.to_dict(), fake.to_dict()
+    if a != b:
+        diff = {k: (a[k], b[k]) for k in a if a[k] != b[k]}
+        raise AssertionError(f"{name}: real and fake counts differ: {diff}")
+
+
+def phase_analysis(torch, api, gk, record) -> dict:
+    """24. The analysis layer on the card: (a) three dry-run cells
+    (``DRY_CELLS``) on the fake 16x16 world, each in a subprocess;
+    (b) ``trace_cost.Counter`` on the card's real steps at full width,
+    the llama3.2-3b decode step at phase 8's shape and one rwkv6-1.6b
+    train step at phase 11's, each counted again on fake CUDA tensors of
+    the same shapes (equal, bit for bit) and held against its profiled
+    device time (at least ``ROOF_MIN`` x its roofline bound), its peak of
+    live bytes beside ``max_memory_allocated`` less the arguments;
+    (c) the host cost of ``ops.gqa_decode``, a registered operator, against
+    the kernel's binding called directly."""
+    import gc
+
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.core.trace_cost import Counter
+    from repro_torch.kernels import ops
+    procs = dry_cells()
+    rec = {}
+
+    # (b) llama3.2-3b decode step, B 8, S 1024 (phase 8's cache)
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    S = LM_PROMPT + LM_GEN
+
+    def decode_setup(model):
+        cache = model.init_cache(LM_BATCH, S)
+        cache["length"].fill_(LM_PROMPT)
+        toks = torch.zeros(LM_BATCH, dtype=torch.int32, device=DEV)
+        return cache, toks
+
+    model = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+    cache, toks = decode_setup(model)
+    with torch.inference_mode():
+        model.decode_step(cache, toks)                     # warm
+        torch.cuda.synchronize()
+        args = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        real = counted(torch, Counter,
+                       lambda: model.decode_step(cache, toks))
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated() - args
+        roof = roofline_share(torch, real,
+                              lambda: model.decode_step(cache, toks))
+    with FakeTensorMode(), torch.inference_mode():
+        fmodel = api.build_model(cfg, device=DEV)
+        fcache, ftoks = decode_setup(fmodel)
+        fmodel.decode_step(fcache, ftoks)
+        fake = counted(torch, Counter,
+                       lambda: fmodel.decode_step(fcache, ftoks))
+    same_counts("llama decode", real, fake)
+    rec["llama_decode"] = {
+        "batch": LM_BATCH, "cache": S, "counts": real.to_dict(), **roof,
+        "peak_live_bytes": real.peak_live_bytes,
+        "max_allocated_less_arguments": extra}
+    log("[analysis] llama decode step " + json.dumps(rec["llama_decode"]))
+    del model, cache, fmodel, fcache
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) rwkv6-1.6b train step, 8 x 1024, 24 layers (phase 11's)
+    cfg = api.get_config(TRAIN_ARCH, smoke=TRAIN_SMOKE)
+
+    def train_setup(model):
+        step = api.make_train_step(model)
+        opt = api.adamw_init(model.params())
+        toks = torch.zeros((TRAIN_BATCH, TRAIN_SEQ + 1), dtype=torch.int32,
+                           device=DEV)
+        return step, opt, {"tokens": toks}
+
+    model = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(TRAIN_SEED))
+    step, opt, batch = train_setup(model)
+    step(opt, batch)                                       # warm
+    torch.cuda.synchronize()
+    args = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    real = counted(torch, Counter, lambda: step(opt, batch))
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - args
+    roof = roofline_share(torch, real, lambda: step(opt, batch))
+    del model, step, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with FakeTensorMode():
+        fmodel = api.build_model(cfg, device=DEV)
+        fstep, fopt, fbatch = train_setup(fmodel)
+        fstep(fopt, fbatch)
+        fake = counted(torch, Counter, lambda: fstep(fopt, fbatch))
+    fake_s = time.perf_counter() - t0
+    same_counts("rwkv6 train", real, fake)
+    rec["rwkv6_train"] = {
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "counts": real.to_dict(),
+        **roof, "peak_live_bytes": real.peak_live_bytes,
+        "max_allocated_less_arguments": extra, "fake_trace_s": fake_s}
+    log("[analysis] rwkv6 train step " + json.dumps(rec["rwkv6_train"]))
+    del fmodel, fstep, fopt
+    gc.collect()
+
+    # (c) the host cost of the registered operator, at phase 8's shape
+    lcfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    gen = torch.Generator(device=DEV).manual_seed(24)
+    q = torch.randn(LM_BATCH, lcfg.n_heads, lcfg.head_dim, generator=gen,
+                    device=DEV).bfloat16()
+    kv = torch.randn(LM_BATCH, S, lcfg.n_kv_heads, lcfg.head_dim,
+                     generator=gen, device=DEV).bfloat16()
+    lens = torch.full((LM_BATCH,), LM_PROMPT, dtype=torch.int32, device=DEV)
+
+    def issue_us(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(GQA_HOST_CALLS):
+            fn()
+        us = (time.perf_counter() - t) * 1e6 / GQA_HOST_CALLS
+        torch.cuda.synchronize()
+        return us
+
+    times = {"ops": [], "binding": []}
+    for _ in range(2):
+        times["ops"].append(issue_us(lambda: ops.gqa_decode(q, kv, kv,
+                                                            lens)))
+        times["binding"].append(issue_us(
+            lambda: gk.gqa_decode_cuda(q, kv, kv, lens)))
+    added = min(times["ops"]) - min(times["binding"])
+    decode_ms = record["lm_serve"]["decode_ms_per_token"]["p50"]
+    rec["gqa_host"] = {
+        "us_per_call": times, "added_us": added,
+        "calls_per_decode_step": lcfg.n_layers,
+        "decode_ms_per_token_p50": decode_ms,
+        "added_share_of_decode": added * lcfg.n_layers / 1e3 / decode_ms}
+    log("[analysis] gqa host cost " + json.dumps(rec["gqa_host"]))
+
+    # (a) the dry-run's cells
+    rec["dryrun"] = {}
+    for (arch, shape), proc, path in procs:
+        try:
+            _, err = proc.communicate(timeout=DRY_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise AssertionError(f"dry-run {arch} {shape}: over "
+                                 f"{DRY_TIMEOUT_S} s")
+        if proc.returncode != 0:
+            raise AssertionError(f"dry-run {arch} {shape} failed: "
+                                 f"{err[-2000:]}")
+        cell = json.loads(path.read_text())
+        keep = {k: cell[k] for k in (
+            "mesh", "accum", "trace_s", "per_device", "flops_per_device",
+            "flops_by_unit", "bytes_per_device",
+            "collective_bytes_per_device", "collective_kinds", "kernels",
+            "roofline", "n_params", "n_params_active")}
+        rec["dryrun"][f"{arch}/{shape}"] = keep
+        log(f"[analysis] dry-run {arch} {shape} " + json.dumps(keep))
+    shutil.rmtree(procs[0][2].parent)
     return rec
 
 
@@ -3158,6 +3386,8 @@ def main(argv=None) -> int:
     record["moe"] = run("moe", phase_moe, torch, api, ops, ref, gk)
     record["mesh"] = run("mesh", phase_mesh, torch, api, gk, lk,
                          record["moe"])
+    record["analysis"] = run("analysis", phase_analysis, torch, api, gk,
+                             record)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]

@@ -52,10 +52,13 @@ from repro_torch.data import DataConfig, SyntheticLMStream, make_stream
 from repro_torch.distributed import (make_serve_step, make_train_step,
                                      prefill_step, serve_step,
                                      shardings_for_train)
+from repro_torch.distributed.stepfn import (checkpoint_shardings,
+                                            full_named, local_named)
 from repro_torch.launch.mesh import (init_distributed, make_local_mesh,
                                      make_production_mesh)
 from repro_torch.models import EncDecModel, build_model
-from repro_torch.optim import adamw_init, adamw_update, wsd_schedule
+from repro_torch.optim import (AdamWState, adamw_init, adamw_update,
+                               wsd_schedule)
 from repro_torch.plan import (ExecutionPlan, LayerGraph, PlanCache,
                               PlannerOptions, PreparedNetwork, ResolvedPlan,
                               execute_network_reference, fold_batchnorm,
@@ -70,7 +73,8 @@ from repro_torch.plan import upgrade_plan as _upgrade_plan
 from repro_torch.runtime import TrainSupervisor
 from repro_torch.serve import (QueueFullError, ServeConfig, ServeEngine,
                                ServeTicket)
-from repro_torch.weights import (to_repro_adamw_state, to_repro_lm_params,
+from repro_torch.weights import (repro_adamw_template, repro_lm_template,
+                                 to_repro_adamw_state, to_repro_lm_params,
                                  to_torch_adamw_state, to_torch_lm_params,
                                  to_torch_weights)
 
@@ -133,13 +137,15 @@ __all__ = [
     "ARCH_IDS", "get_config", "build_model", "EncDecModel",
     "to_torch_lm_params",
     "to_repro_lm_params", "to_torch_adamw_state", "to_repro_adamw_state",
+    "repro_lm_template", "repro_adamw_template",
     # serving
     "ServeEngine", "ServeConfig", "ServeTicket", "QueueFullError",
     # training
-    "DataConfig", "SyntheticLMStream", "make_stream", "adamw_init",
-    "adamw_update", "wsd_schedule", "make_train_step",
+    "DataConfig", "SyntheticLMStream", "make_stream", "AdamWState",
+    "adamw_init", "adamw_update", "wsd_schedule", "make_train_step",
     "CheckpointManager", "TrainSupervisor",
     # distribution
     "init_distributed", "make_local_mesh", "make_production_mesh",
     "shardings_for_train", "make_serve_step", "serve_step", "prefill_step",
+    "checkpoint_shardings", "full_named", "local_named",
 ]

@@ -29,11 +29,19 @@ The collective names (``all_reduce``, ``all_gather_into_tensor``,
 this repository runs on, on ``nccl`` and on ``gloo``.  ``CALLS`` counts
 each forward call by name (a backward call is not counted), so a run can
 show which collectives a sharded path launched; ``reset_calls`` zeroes it.
-A group of one rank still runs every collective.
+``BYTES`` sums the result bytes of each forward call by (kind, mesh
+dimension): the quantity ``repro.core.hlo_cost`` counts for a collective,
+which ``repro_torch.core.trace_cost`` reads.  A group is named after the
+mesh dimension it spans once ``label_mesh`` has seen the mesh
+(``place_model`` calls it): ``model``, ``data``, ``pod``, or
+``pod+data`` for the flattened data group of a three-axis mesh
+(``data+model`` where both dimensions are one group, on one rank); any
+other group is ``group``.  A group of one rank still runs every
+collective.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
@@ -41,37 +49,71 @@ import torch.distributed as dist
 #: forward calls of each collective since the last ``reset_calls``
 CALLS: Dict[str, int] = {"all_reduce": 0, "all_gather": 0,
                          "reduce_scatter": 0, "all_to_all_single": 0}
+#: result bytes of those calls by (kind, mesh dimension)
+BYTES: Dict[Tuple[str, str], float] = {}
+#: process-group name -> the mesh dimension(s) it spans
+_DIMS: Dict[str, str] = {}
+#: mesh -> its flattened data group
+_DATA_GROUPS: Dict[object, object] = {}
 
 
 def reset_calls() -> None:
     for k in CALLS:
         CALLS[k] = 0
+    BYTES.clear()
 
 
-def _count(name: str) -> None:
+def data_group(mesh):
+    """The process group of the data axes (``pod`` and ``data`` together
+    on a three-axis mesh, flattened once a mesh: the flattening indexes
+    the mesh's rank tensor, which a trace under ``FakeTensorMode`` must
+    not do)."""
+    names = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    if mesh not in _DATA_GROUPS:
+        _DATA_GROUPS[mesh] = mesh[names]._flatten().get_group()
+    return _DATA_GROUPS[mesh]
+
+
+def label_mesh(mesh) -> None:
+    """Name the groups of ``mesh`` after its dimensions (and the
+    flattened data group ``pod+data``).  Dimensions that share one group
+    (each spanning the whole world, as on one rank) share its name:
+    ``data+model``."""
+    names: Dict[str, list] = {}
+    for name in mesh.mesh_dim_names:
+        names.setdefault(mesh.get_group(name).group_name, []).append(name)
+    if "pod" in mesh.mesh_dim_names:
+        names.setdefault(data_group(mesh).group_name, ["pod", "data"])
+    _DIMS.update((g, "+".join(dims)) for g, dims in names.items())
+
+
+def _count(name: str, out: torch.Tensor, group) -> None:
     CALLS[name] += 1
+    key = (name, _DIMS.get(getattr(group, "group_name", ""), "group"))
+    BYTES[key] = BYTES.get(key, 0.0) + out.numel() * out.element_size()
 
 
 # ------------------------------------------------------- raw collectives
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM
                 ) -> torch.Tensor:
-    _count("all_reduce")
     out = x.contiguous().clone()
     dist.all_reduce(out, op=op, group=group)
+    _count("all_reduce", out, group)
     return out
 
 
 def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    _count("all_gather")
     n = dist.get_world_size(group)
     src = x.movedim(dim, 0).contiguous()
     out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
     dist.all_gather_into_tensor(out, src, group=group)
+    _count("all_gather", out, group)
     return out.movedim(0, dim)
 
 
 def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    _count("reduce_scatter")
     n = dist.get_world_size(group)
     src = x.movedim(dim, 0).contiguous()
     if src.shape[0] % n:
@@ -79,6 +121,7 @@ def _reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
                          f"does not split over {n} ranks")
     out = src.new_empty((src.shape[0] // n,) + tuple(src.shape[1:]))
     dist.reduce_scatter_tensor(out, src, group=group)
+    _count("reduce_scatter", out, group)
     return out.movedim(0, dim)
 
 
@@ -92,10 +135,10 @@ def _split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 
 def _a2a(x: torch.Tensor, group) -> torch.Tensor:
-    _count("all_to_all_single")
     src = x.contiguous()
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=group)
+    _count("all_to_all_single", out, group)
     return out
 
 

@@ -39,16 +39,8 @@ from repro_torch.models.blocks import (moe_capacity, moe_combine,
 from repro_torch.models.common import apply_norm
 
 from . import collectives as col
+from .collectives import data_group
 from .sharding import axis_sizes, data_size
-
-
-def data_group(mesh):
-    """The process group of the data axes (``pod`` and ``data`` together
-    on a three-axis mesh)."""
-    names = tuple(a for a in ("pod", "data") if a in mesh.mesh_dim_names)
-    if len(names) == 1:
-        return mesh.get_group(names[0])
-    return mesh[names]._flatten().get_group()
 
 
 def capacity(cfg: ArchConfig, n_tokens: int) -> int:

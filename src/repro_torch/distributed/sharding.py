@@ -39,6 +39,9 @@ MeshLike = Union[Mapping[str, int], "torch.distributed.device_mesh.DeviceMesh"]
 
 # data axes for batch-parallel dims: the pod axis joins DP
 DATA = ("pod", "data")
+#: FSDP splits a tensor of at least this many elements (its layer axis
+#: counted, as ``repro`` counts) over the data axes
+FSDP_MIN_ELEMENTS = 4_000_000
 
 
 def axis_sizes(mesh: MeshLike) -> Dict[str, int]:
@@ -211,14 +214,15 @@ def param_shardings(mesh: MeshLike, specs: Mapping, fsdp: bool = False
                     ) -> Dict[str, Spec]:
     """The placement of every parameter of ``specs`` (name -> (shape,
     dtype), as ``lm.param_specs`` gives them).  ``fsdp`` also puts the data
-    axes on the largest unsharded dim of every tensor of at least 4e6
-    elements (counted with its layer axis, as ``repro`` counts)."""
+    axes on the largest unsharded dim of every tensor of at least
+    ``FSDP_MIN_ELEMENTS`` (counted with its layer axis, as ``repro``
+    counts)."""
     depth = _depths(specs)
     out = {}
     for name, (shape, _) in specs.items():
         path, stacked, full = _stacked(name, shape, depth)
         spec = _guard(mesh, full, _spec_for_path(path, len(full)))
-        if fsdp and math.prod(full) >= 4_000_000:
+        if fsdp and math.prod(full) >= FSDP_MIN_ELEMENTS:
             spec = _add_data_axis(mesh, spec, full)
         out[name] = _unstack(name, spec, stacked)
     return out
@@ -346,6 +350,41 @@ def batch_sharding(mesh: MeshLike) -> Spec:
 
 
 # ------------------------------------------------------------- placing tensors
+@dataclasses.dataclass(frozen=True)
+class DataBlock:
+    """This rank's share of a tensor over the data group (``size`` ranks,
+    this one ``rank``, pod-major): the block along ``dim``, or, where
+    ``dim`` is None (ZeRO-1 on ``repro``'s layer axis), whole layers, of
+    which this rank keeps those it ``owns``.  ``place_model`` marks a
+    parameter's FSDP split (``p.fsdp``) and its optimiser state's ZeRO-1
+    split (``p.zero1``) with one."""
+    dim: Optional[int]
+    group: object
+    size: int
+    rank: int
+    owns: bool = True
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``t`` (which every rank holds whole)."""
+        k = t.shape[self.dim] // self.size
+        return t.narrow(self.dim, self.rank * k, k).contiguous()
+
+    def whole(self, t: torch.Tensor) -> torch.Tensor:
+        """The blocks of every rank concatenated (a collective, no
+        gradient)."""
+        from . import collectives as col
+        return col._all_gather(t, self.dim, self.group)
+
+
+def data_dim(spec: Spec, mesh: MeshLike) -> Optional[int]:
+    """The dim of ``spec`` that the data axes split, or None."""
+    data = set(_axes(mesh)[0])
+    for i, ax in enumerate(spec):
+        if set(ax if isinstance(ax, tuple) else (ax,)) & data:
+            return i
+    return None
+
+
 def placements(mesh, spec: Spec) -> list:
     """``spec`` as DTensor placements, one per mesh dim."""
     from torch.distributed.tensor import Replicate, Shard

@@ -8,13 +8,27 @@ its local block of ``sharding.param_shardings``' placement (the packed
 ``wkv`` split by KV head), the model gets the mesh, its
 ``TensorParallel`` context and the layer-boundary hook of the layout mode,
 and every block runs on plain local tensors with explicit collectives.
-Each rank takes its data rank's rows of the global batch; the step
-averages the gradients over the data axes (a parameter split over them,
-an MoE expert, was summed already by its gather's backward) and clips by
-the global norm of the whole, sharded gradients.  FSDP and ZeRO-1 are
-tables here (``shardings_for_train``): the step keeps every parameter
-and its f32 state whole over the data axes, unless a rule puts a data
-axis on it (the MoE experts).
+Each rank takes its data rank's rows of the global batch (all of them
+where the batch does not split over the data ranks, as ``repro``'s
+``_guard`` replicates it); the step averages the gradients over the data
+axes and clips by the global norm of the whole, sharded gradients.
+
+FSDP and ZeRO-1 run as ``repro``'s tables place them
+(``shardings_for_train``).  FSDP (a model over 8e9 parameters,
+``_wants_fsdp``) stores each leaf of at least ``FSDP_MIN_ELEMENTS`` as its
+data block; its layer gathers it whole at use (``models.common.Whole``),
+and the gather's backward reduce-scatters the gradient, so it arrives
+summed over the data ranks, as an MoE expert's does.  ZeRO-1 stores each
+leaf's f32 moments and master copy as its data block
+(``sharding.DataBlock``, ``p.zero1``): the gradient's data all-reduce
+becomes a reduce-scatter onto that block, AdamW updates the block and
+all-gathers the cast parameter.  Where ZeRO-1 puts the data axes on
+``repro``'s layer axis, each data rank keeps the state of the layers it
+owns: a leaf's gradients, stacked over the layers, are reduce-scattered
+along them and the updated layers all-gathered back.  Where FSDP would
+split a leaf on the layer axis it stays whole over the data axes (no
+production mesh places one so).  The losses and parameters are those of
+the step that keeps everything whole; only the bytes a rank holds change.
 """
 from __future__ import annotations
 
@@ -28,9 +42,10 @@ from repro_torch.models.lm import _is_mamba2, _is_rwkv, param_specs
 from repro_torch.optim import AdamWState, adamw_update
 
 from . import collectives as col
-from .sharding import (Spec, _axes, axis_sizes, cache_shardings,
-                       data_size, gather, hidden_sharding, kv_order,
-                       opt_shardings, param_shardings, place, spec_str)
+from .sharding import (DataBlock, LayerSharded, Spec, _axes, _depths,
+                       axis_sizes, cache_shardings, data_dim, data_size,
+                       gather, hidden_sharding, kv_order, opt_shardings,
+                       param_shardings, place, repro_path, spec_str)
 
 
 # ------------------------------------------------------------ placement
@@ -38,9 +53,13 @@ def _is_kv(name: str) -> bool:
     return name.endswith("wkv")
 
 
-def _refuse(model, m: int) -> None:
+def _refuse(model, m: int, fsdp: bool) -> None:
     """Raise ``NotImplementedError`` for what the mesh does not split."""
     cfg = model.cfg
+    if fsdp and cfg.family in ("hybrid", "encdec"):
+        raise NotImplementedError(
+            f"{cfg.name}: FSDP of the {cfg.family} family is not ported "
+            f"(no config of it reaches 8e9 parameters)")
     if m == 1:
         return
     if cfg.family == "encdec" or _is_mamba2(cfg):
@@ -62,7 +81,10 @@ def _refuse(model, m: int) -> None:
 
 def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
     """Swap each parameter of ``model`` for its local block on ``mesh``
-    and give the model the mesh, its ``TensorParallel`` context and the
+    (FSDP's data block too, for a model ``_wants_fsdp``), mark each with
+    its FSDP and ZeRO-1 splits (``p.fsdp``, ``p.zero1``: a
+    ``sharding.DataBlock`` or None), and give the model the mesh, its
+    placement tables, its ``TensorParallel`` context and the
     ``layout_mode`` hook.  A model placed on this mesh before only takes
     the new hook; one placed on another mesh raises."""
     hook = hidden_sharding(mesh, layout_mode)
@@ -72,19 +94,44 @@ def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
         model.hook = hook
         return
     m = axis_sizes(mesh)["model"]
-    _refuse(model, m)
+    fsdp = _wants_fsdp(model)
+    _refuse(model, m, fsdp)
     cfg = model.cfg
-    sh = param_shardings(mesh, param_specs(cfg))
+    specs = param_specs(cfg)
+    p_sh, z1 = shardings_for_train(model, mesh)
+    base = param_shardings(mesh, specs)
+    sh = {n: base[n] if isinstance(s, LayerSharded) else s
+          for n, s in p_sh.items()}
     perm = kv_order(cfg, m)
+    col.label_mesh(mesh)
+    dg, dsize, drank = col.data_group(mesh), data_size(mesh), data_rank(mesh)
+    depth = _depths(specs)
+    layers: Dict[str, list] = {}
     with torch.no_grad():
         for name, p in model.params().items():
             full = p.data
             if _is_kv(name) and perm is not None:
                 full = full[:, perm.to(full.device)]
             p.data = place(full, mesh, sh[name])
+            split = data_dim(sh[name], mesh)
+            p.fsdp = DataBlock(split, dg, dsize, drank) \
+                if split is not None and data_dim(base[name], mesh) is None \
+                else None
+            if isinstance(z1[name], LayerSharded):
+                stack, i = name.split(".")[:2]
+                per = depth[stack] // dsize
+                p.zero1 = DataBlock(None, dg, dsize, drank,
+                                    owns=int(i) // per == drank)
+                layers.setdefault(repro_path(name)[0], []).append(name)
+            else:
+                zd = data_dim(z1[name], mesh)
+                p.zero1 = DataBlock(zd, dg, dsize, drank) \
+                    if zd is not None and split is None else None
     split = frozenset(n.rsplit(".", 1)[-1] for n, spec in sh.items()
                       if n.rsplit(".", 1)[-1] in ("embed", "mu")
                       and "model" in spec)
+    model.fsdp = any(p.fsdp is not None for p in model.params().values())
+    model.placement = {"params": sh, "state": z1, "layers": layers}
     model.mesh = mesh
     model.tp = TensorParallel(mesh.get_group("model"), m,
                               mesh.get_local_rank("model"),
@@ -97,39 +144,55 @@ def _kv_inverse(cfg, m: int) -> Optional[torch.Tensor]:
     return None if perm is None else torch.argsort(perm)
 
 
-def full_named(model, local: Mapping[str, torch.Tensor]
-               ) -> Dict[str, torch.Tensor]:
-    """Whole tensors from every rank's blocks of tensors laid out as
-    ``model.params()`` (the parameters, or the optimiser's moments): a
-    collective, every rank gets them."""
+def full_named(model, local: Mapping[str, torch.Tensor],
+               state: bool = False) -> Dict[str, torch.Tensor]:
+    """Whole tensors from every rank's blocks: of the parameters (laid out
+    as ``model.params()``), or with ``state`` of the optimiser's f32
+    tensors (their ZeRO-1 blocks; the layers a rank owns).  A
+    collective: every rank gets them all."""
     mesh = model.mesh
     if mesh is None:
         return dict(local)
-    sh = param_shardings(mesh, param_specs(model.cfg))
+    table = model.placement["state" if state else "params"]
     inv = _kv_inverse(model.cfg, axis_sizes(mesh)["model"])
     out = {}
-    for name, t in local.items():
-        full = gather(t, mesh, sh[name])
+    for name in model.params():
+        spec = table[name]
+        if isinstance(spec, LayerSharded):
+            continue
+        out[name] = gather(local[name], mesh, spec)
+    for names in model.placement["layers"].values() if state else ():
+        owned = torch.stack([local[n] for n in names if n in local])
+        every = col._all_gather(owned, 0, col.data_group(mesh))
+        for n, t in zip(names, every.unbind(0)):
+            out[n] = gather(t, mesh, tuple(table[n][1:]))
+    for name, full in out.items():
         if _is_kv(name) and inv is not None:
-            full = full[:, inv.to(full.device)]
-        out[name] = full
-    return out
+            out[name] = full[:, inv.to(full.device)]
+    return {n: out[n] for n in model.params() if n in out}
 
 
-def local_named(model, full: Mapping[str, torch.Tensor]
-                ) -> Dict[str, torch.Tensor]:
+def local_named(model, full: Mapping[str, torch.Tensor],
+                state: bool = False) -> Dict[str, torch.Tensor]:
     """The inverse of ``full_named``: this rank's blocks of whole
-    tensors laid out as ``model.params()``."""
+    tensors laid out as ``model.params()`` (with ``state``, of the
+    optimiser's f32 tensors: none for a layer another rank owns)."""
     mesh = model.mesh
     if mesh is None:
         return dict(full)
-    sh = param_shardings(mesh, param_specs(model.cfg))
+    table = model.placement["state" if state else "params"]
     perm = kv_order(model.cfg, axis_sizes(mesh)["model"])
+    params = model.params()
     out = {}
     for name, t in full.items():
         if _is_kv(name) and perm is not None:
             t = t[:, perm.to(t.device)]
-        out[name] = place(t, mesh, sh[name])
+        spec = table[name]
+        if isinstance(spec, LayerSharded):
+            if params[name].zero1.owns:
+                out[name] = place(t, mesh, tuple(spec[1:]))
+            continue
+        out[name] = place(t, mesh, spec)
     return out
 
 
@@ -143,11 +206,12 @@ def data_rank(mesh) -> int:
 
 
 def data_rows(x: torch.Tensor, mesh) -> torch.Tensor:
-    """This data rank's rows of a global batch (dim 0)."""
+    """This data rank's rows of a global batch (dim 0); all of them where
+    the batch does not split over the data ranks (``repro``'s ``_guard``
+    drops the data axis there: every data rank holds the whole batch)."""
     d = data_size(mesh)
     if x.shape[0] % d:
-        raise ValueError(f"batch {x.shape[0]} does not split over {d} data "
-                         f"ranks")
+        return x
     k = x.shape[0] // d
     return x[data_rank(mesh) * k:(data_rank(mesh) + 1) * k]
 
@@ -167,8 +231,8 @@ def local_cache_specs(model, batch: int, max_seq: int) -> Dict:
                 out[n] = walk(s, sh[n])
                 continue
             shape, dt = s
-            if n == "length":
-                out[n] = ((batch,), dt)
+            if n == "length":    # replicated, as cache_shardings places it
+                out[n] = (shape, dt)
                 continue
             spec = sh[n]
             if n in ("k", "v", "ck", "cv", "attn_k", "attn_v") \
@@ -177,7 +241,7 @@ def local_cache_specs(model, batch: int, max_seq: int) -> Dict:
                     f"{model.cfg.name}: {model.cfg.n_kv_heads} KV heads do "
                     f"not split over a model axis of {sizes['model']}, and "
                     f"split-sequence decode is not ported: ROADMAP.md Queue "
-                    f"3")
+                    f"1 item 10b")
             local = []
             for dim, ax in zip(shape, spec):
                 axes = () if ax is None else (
@@ -224,33 +288,64 @@ def checkpoint_shardings(model, mesh):
 
 
 def _grad_sync(model, mesh, names):
-    """(average the gradients over the data axes, the ``reduce`` of the
-    global-norm clip) for the leaves ``names``."""
-    sh = param_shardings(mesh, param_specs(model.cfg))
-    data = set(_axes(mesh)[0])
-    by_data = [bool(set(_flat(sh[n])) & data) for n in names]
-    by_model = [("model" in _flat(sh[n])) for n in names]
+    """(average the gradients over the data axes onto each leaf's block,
+    the ``reduce`` of the global-norm clip, gather the layers a rank
+    updated) for the leaves ``names``.  ``average`` takes and returns
+    gradients by name: a leaf split over the data axes (FSDP, an MoE
+    expert) arrives summed from its gather's backward; a leaf with a
+    ZeRO-1 block is reduce-scattered onto it; a leaf whose state is split
+    on the layer axis is reduce-scattered along its stacked layers, and a
+    rank keeps the layers it owns; any other is all-reduced."""
+    params = model.params()
+    placed = model.placement["params"]
+    groups = model.placement["layers"]
+    grouped = {n for ns in groups.values() for n in ns}
+    split = {n: data_dim(placed[n], mesh) is not None for n in names}
+    by_data = {n: split[n] or params[n].zero1 is not None for n in names}
+    by_model = {n: "model" in _flat(placed[n]) for n in names}
     dsize = data_size(mesh)
-    from .moe_ep import data_group
-    mg, dg = mesh.get_group("model"), data_group(mesh)
+    mg, dg = mesh.get_group("model"), col.data_group(mesh)
 
     def average(grads, loss):
-        out = []
-        for g, split in zip(grads, by_data):
-            if not split:
+        out = {}
+        for n, g in grads.items():
+            if n in grouped:
+                continue
+            block = params[n].zero1
+            if split[n]:
+                pass
+            elif block is not None:
+                g = col._reduce_scatter(g, block.dim, dg)
+            else:
                 g = col._all_reduce(g, dg)
-            out.append(g / dsize)
+            out[n] = g / dsize
+        for ns in groups.values():
+            mine = col._reduce_scatter(torch.stack([grads[n] for n in ns]),
+                                       0, dg)
+            owned = [n for n in ns if params[n].zero1.owns]
+            for n, g in zip(owned, mine.unbind(0)):
+                out[n] = g / dsize
         return out, col._all_reduce(loss.detach(), dg) / dsize
 
     def reduce(sq):
-        v = torch.stack(sq)
+        zero = next(iter(sq.values())).new_zeros(())
+        v = torch.stack([sq.get(n, zero) for n in names])
         for group, which in ((mg, by_model), (dg, by_data)):
-            mask = torch.tensor(which, device=v.device)
+            mask = torch.tensor([which[n] for n in names], device=v.device)
             summed = col._all_reduce(v * mask, group)
             v = torch.where(mask, summed, v)
         return list(v.unbind())
 
-    return average, reduce
+    @torch.no_grad()
+    def gather_layers():
+        for ns in groups.values():
+            owned = torch.stack([params[n] for n in ns
+                                 if params[n].zero1.owns])
+            every = col._all_gather(owned, 0, dg)
+            for n, t in zip(ns, every.unbind(0)):
+                params[n].copy_(t)
+
+    return average, reduce, gather_layers
 
 
 def _flat(spec: Spec):
@@ -268,8 +363,10 @@ def make_train_step(model, mesh=None, *, layout_mode: str = "coswitch",
 
     ``model`` is an ``LMModel`` on its device; its parameters get gradients
     from here on.  With a ``mesh`` the model is placed on it first
-    (``place_model``, with ``layout_mode``'s layer-boundary hook): build
-    the optimiser state (``adamw_init(model.params())``) after this call.
+    (``place_model``, with ``layout_mode``'s layer-boundary hook, FSDP
+    and the ZeRO-1 blocks): build the optimiser state
+    (``adamw_init(model.params())``, which takes each parameter's ZeRO-1
+    block) after this call.
     ``batch`` is the global ``{"tokens": (B, T+1)}``, with ``"frames"``
     (B, Tenc, D) for an encoder-decoder (numpy or tensors), handed to
     ``model.loss`` (this data rank's rows under a mesh); ``accum`` > 1
@@ -286,8 +383,8 @@ def make_train_step(model, mesh=None, *, layout_mode: str = "coswitch",
     params = model.params()
     names = list(params)
     leaves = [params[n] for n in names]
-    average, reduce = _grad_sync(model, mesh, names) if mesh is not None \
-        else (None, None)
+    average, reduce, gather_layers = _grad_sync(model, mesh, names) \
+        if mesh is not None else (None, None, None)
 
     def grads_of(mb: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, list]:
         loss = model.loss(mb)
@@ -318,11 +415,13 @@ def make_train_step(model, mesh=None, *, layout_mode: str = "coswitch",
                 losses.append(mb_loss.detach())
             grads = [g / accum for g in gsum]
             loss = torch.mean(torch.stack(losses))
+        grads = dict(zip(names, grads))
         if average is not None:
             grads, loss = average(grads, loss)
         step_lr = schedule(opt_state.step) if schedule is not None else lr
-        adamw_update(dict(zip(names, grads)), opt_state, params, step_lr,
-                     reduce=reduce)
+        adamw_update(grads, opt_state, params, step_lr, reduce=reduce)
+        if gather_layers is not None:
+            gather_layers()
         return opt_state, {"loss": loss.detach(), "lr": float(step_lr)}
 
     return step

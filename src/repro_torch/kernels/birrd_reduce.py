@@ -47,6 +47,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.gpu_cost import Work
+
 from repro_torch.core.birrd import ADD_LEFT, ADD_RIGHT, PASS, SWAP, Birrd
 
 from . import build as _build
@@ -330,3 +332,27 @@ def birrd_apply_cuda(x: torch.Tensor, stage_mats: torch.Tensor,
     """
     _check(x, stage_mats, port_mask, switch=False)
     return _launch(x, stage_mats, port_mask, switch=False)
+
+
+@functools.lru_cache(maxsize=1024)
+def program_adds(aw: int, configs: Tuple[Tuple[int, ...], ...]) -> int:
+    """The additions a column of a routed program makes: the wires of its
+    stages whose row of the stage matrix holds two entries (the others are
+    copies)."""
+    mats = _compile_switch_program(aw, configs)
+    return int(((mats != 0).sum(axis=-1) > 1).sum())
+
+
+def work(aw: int, d: int, itemsize: int, n_adds: int = 0) -> Work:
+    """One call's work from its shapes alone: the (aw, d) input read and
+    the output written once, and ``n_adds`` additions a column (a routed
+    program's ``program_adds``), on the CUDA cores."""
+    return Work(float(n_adds) * d, 2.0 * aw * d * itemsize, "fp32")
+
+
+def dense_work(stages: int, aw: int, d: int, itemsize: int) -> Work:
+    """``birrd_apply_p``'s work on arbitrary stage matrices: ``stages``
+    dense (aw, aw) x (aw, d) products, the input, the output and the f32
+    matrices moved once."""
+    return Work(2.0 * stages * aw * aw * d,
+                2.0 * aw * d * itemsize + 4.0 * stages * aw * aw, "fp32")

@@ -30,6 +30,8 @@ import threading
 
 import torch
 
+from repro_torch.core.gpu_cost import Work
+
 from . import build as _build
 
 NAME = "gqa_decode"
@@ -236,3 +238,16 @@ def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _lock:
         _launches += 1
     return out
+
+
+def work(B: int, Hq: int, Hkv: int, D: int, rows: int, itemsize: int
+         ) -> Work:
+    """One call's work from its shapes alone: ``rows`` K/V rows read over
+    the batch (the sum of the lengths where the caller knows them; ``B
+    S``, every cache row, an upper bound, where it does not), q and the
+    output moved once and the int32 lengths read; q.k and p.v over those
+    rows, 2 operations a multiply-add, on the tensor cores for a 2-byte
+    type."""
+    nbytes = itemsize * (2 * rows * Hkv * D + 2 * B * Hq * D) + 4 * B
+    return Work(4.0 * rows * Hq * D, float(nbytes),
+                "bf16" if itemsize == 2 else "fp32")

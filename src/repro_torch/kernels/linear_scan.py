@@ -26,6 +26,8 @@ import threading
 
 import torch
 
+from repro_torch.core.gpu_cost import Work
+
 from . import build as _build
 from .ref import CHUNK, SUB  # noqa: F401  (the kernel's kChunk / kSub)
 
@@ -133,3 +135,23 @@ def linear_scan_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with _lock:
         _launches += 1
     return out
+
+
+def work(B: int, H: int, T: int, dk: int, dv: int, itemsize: int,
+         decay_itemsize: int = 4) -> Work:
+    """One call's work from its shapes alone: q, k, v and the log decay
+    read once and the output (v's type) written once; the f32 operations
+    the chunked scan needs, 2 for each multiply-add of its four products
+    in every chunk of ``CHUNK`` steps: ``(q e^cum) h`` and the state
+    update ``(k e^(cum_L - cum))^T v`` (L dk dv each), the masked scores
+    over the pairs s <= t (L (L + 1) / 2 dk) and ``S v`` (the same pairs,
+    dv).  Exps, the decay factors and the kernel's sub-chunk
+    factorisation are left out; a ragged last chunk counts its real steps
+    only."""
+    ops_ = 0
+    for lo in range(0, T, CHUNK):
+        n = min(CHUNK, T - lo)
+        ops_ += 2 * (2 * n * dk * dv + n * (n + 1) // 2 * (dk + dv))
+    nbytes = B * H * T * ((2 * dk + 2 * dv) * itemsize
+                          + dk * decay_itemsize)
+    return Work(float(B * H * ops_), float(nbytes), "fp32")

@@ -14,6 +14,15 @@ the JAX API does, and runs the dense kernel.  The JAX wrappers'
 ``block_d`` grid hint and ``interpret`` flag have no counterpart: the
 kernels take any ``d``.
 
+Each entry point is one registered operator (``torch.library``, under the
+``repro_torch`` namespace) with a fake implementation, so a
+``TorchDispatchMode`` sees ``repro_torch.gqa_decode`` as one op (not the
+plain version's inner ops) and a ``FakeTensorMode`` gives a fake tensor
+its output's shape without reaching ``ctypes``, a build or the CUDA
+runtime.  ``WORK`` states each operator's work from its arguments' shapes
+alone (the kernel modules' ``work``), for ``repro_torch.core.trace_cost``.
+The device dispatch happens inside each operator's one implementation.
+
 ``linear_scan`` is differentiable.  Its backward is not a kernel, because
 the JAX package has none: ``repro``'s ``custom_vjp`` recomputes through
 ``ref.linear_scan_chunked`` in XLA, and the port recomputes through its own
@@ -23,13 +32,20 @@ operands lie.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.gpu_cost import Work
+
+from . import birrd_reduce as _birrd
+from . import gqa_decode as _gqa
+from . import linear_scan as _scan
 from . import ref
-from .birrd_reduce import (_out_port_mask, _program_codes, _routed_program,
-                           birrd_apply_cuda, birrd_switch_cuda)
+from . import rir_matmul as _rir
+from .birrd_reduce import (_out_port_mask, _program_codes, _routed_configs,
+                           _routed_program, birrd_apply_cuda,
+                           birrd_switch_cuda, program_adds)
 from .gqa_decode import gqa_decode_cuda
 from .linear_scan import linear_scan_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
@@ -59,6 +75,48 @@ def device_perm(perm: Sequence[int], device: torch.device | str
     return _device_perm(_check_perm(p, len(p)), torch.device(device))
 
 
+def _device_check(name: str, x: torch.Tensor) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name} runs on cpu or cuda, not {x.device}")
+
+
+#: the operators' library; each is defined with one implementation for
+#: every backend (``CompositeExplicitAutograd``: the dispatcher calls it
+#: once, below a dispatch mode) and a fake one.  ``torch.library
+#: .custom_op`` would do the same at about five times the host cost a
+#: call (its autograd wrapper runs in Python on every call).
+_LIB = torch.library.Library("repro_torch", "DEF")
+
+
+def _define(schema: str, impl: Callable, fake: Callable):
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, impl, "CompositeExplicitAutograd")
+    torch.library.register_fake(f"repro_torch::{name}", fake, lib=_LIB)
+    return getattr(torch.ops.repro_torch, name).default
+
+
+# ------------------------------------------------------------- rir_matmul
+def _rir_matmul_impl(a: torch.Tensor, b: torch.Tensor, perm: torch.Tensor,
+                     residual: Optional[torch.Tensor], block_n: int
+                     ) -> torch.Tensor:
+    _device_check("rir_matmul", a)
+    if a.device.type == "cpu":
+        p = tuple(int(x) for x in perm.tolist())
+        return ref.rir_matmul(a, b, _check_perm(p, len(p)), block_n,
+                              residual=residual)
+    return rir_matmul_cuda(a, b, perm, residual=residual, block_n=block_n)
+
+
+def _rir_matmul_fake(a, b, perm, residual, block_n):
+    return a.new_empty((a.shape[0], b.shape[1]))
+
+
+_rir_op = _define("rir_matmul(Tensor a, Tensor b, Tensor perm, "
+                  "Tensor? residual, int block_n) -> Tensor",
+                  _rir_matmul_impl, _rir_matmul_fake)
+
+
 def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
                *, residual: Optional[torch.Tensor] = None,
                block_n: int = 128) -> torch.Tensor:
@@ -75,35 +133,62 @@ def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
     if N % block_n:
         raise ValueError(f"N={N} is not a multiple of block_n={block_n}")
     n_blocks = N // block_n
-    if a.device.type == "cpu":
-        if out_block_perm is None:
-            perm = tuple(range(n_blocks))
-        else:
-            perm = tuple(int(p) for p in (
-                out_block_perm.tolist() if torch.is_tensor(out_block_perm)
-                else out_block_perm))
-        return ref.rir_matmul(a, b, _check_perm(perm, n_blocks), block_n,
-                              residual=residual)
-    if a.device.type != "cuda":
-        raise ValueError(f"rir_matmul runs on cpu or cuda, not {a.device}")
-    if out_block_perm is None:
-        perm_t = device_perm(range(n_blocks), a.device)
-    elif torch.is_tensor(out_block_perm):
+    _device_check("rir_matmul", a)
+    if torch.is_tensor(out_block_perm):
         perm_t = out_block_perm
+    elif a.device.type == "cpu":
+        perm = range(n_blocks) if out_block_perm is None else out_block_perm
+        perm_t = torch.tensor([int(p) for p in perm], dtype=torch.int32)
     else:
-        perm_t = device_perm(out_block_perm, a.device)
-    return rir_matmul_cuda(a, b, perm_t, residual=residual, block_n=block_n)
+        perm_t = device_perm(range(n_blocks) if out_block_perm is None
+                             else out_block_perm, a.device)
+    return _rir_op(a, b, perm_t, residual, block_n)
+
+
+# ----------------------------------------------------------------- BIRRD
+def _birrd_apply_p_impl(x: torch.Tensor, stage_mats: torch.Tensor
+                        ) -> torch.Tensor:
+    _device_check("birrd_apply", x)
+    if x.device.type == "cpu":
+        return ref.birrd_apply(x, stage_mats)
+    return birrd_apply_cuda(x, stage_mats)
+
+
+def _birrd_apply_p_fake(x, stage_mats):
+    return torch.empty_like(x)
+
+
+_birrd_p_op = _define("birrd_apply_p(Tensor x, Tensor stage_mats) -> Tensor",
+                      _birrd_apply_p_impl, _birrd_apply_p_fake)
 
 
 def birrd_apply_p(x: torch.Tensor, stage_mats: torch.Tensor) -> torch.Tensor:
     """Push ``x`` (aw, d) through a compiled BIRRD switch program
     ``stage_mats`` (S, aw, aw) f32 on x's device, any matrices (the dense
     kernel): ``(aw, d)`` in x's dtype."""
+    return _birrd_p_op(x, stage_mats)
+
+
+def _configs(aw: int, flat: Sequence[int]) -> Tuple[Tuple[int, ...], ...]:
+    w = aw // 2
+    return tuple(tuple(int(c) for c in flat[i:i + w])
+                 for i in range(0, len(flat), w))
+
+
+def _birrd_apply_impl(x: torch.Tensor, configs: List[int]) -> torch.Tensor:
+    _device_check("birrd_apply", x)
+    cfg = _configs(x.shape[0], configs)
     if x.device.type == "cpu":
-        return ref.birrd_apply(x, stage_mats)
-    if x.device.type != "cuda":
-        raise ValueError(f"birrd_apply runs on cpu or cuda, not {x.device}")
-    return birrd_apply_cuda(x, stage_mats)
+        return ref.birrd_switch(x, cfg)
+    return birrd_switch_cuda(x, _program_codes(x.shape[0], cfg, x.device))
+
+
+def _birrd_apply_fake(x, configs):
+    return torch.empty_like(x)
+
+
+_birrd_op = _define("birrd_apply(Tensor x, int[] configs) -> Tensor",
+                    _birrd_apply_impl, _birrd_apply_fake)
 
 
 def birrd_apply(x: torch.Tensor, configs: Sequence[Sequence[int]]
@@ -111,12 +196,28 @@ def birrd_apply(x: torch.Tensor, configs: Sequence[Sequence[int]]
     """Route ``x`` (aw, d) through BIRRD configured by ``configs`` (one
     row of Egg configs a stage): the switch kernel on the card, its codes
     uploaded once per program and device."""
-    cfg = tuple(tuple(int(c) for c in row) for row in configs)
+    return _birrd_op(x, [int(c) for row in configs for c in row])
+
+
+def _birrd_reduce_impl(x: torch.Tensor, group_ids: List[int],
+                       out_ports: List[int]) -> torch.Tensor:
+    _device_check("birrd_reduce", x)
+    aw = x.shape[0]
+    ports = tuple(out_ports)
+    cfg, codes = _routed_program(aw, tuple(group_ids), ports, x.device)
+    mask = _out_port_mask(aw, ports, x.device)
     if x.device.type == "cpu":
-        return ref.birrd_switch(x, cfg)
-    if x.device.type != "cuda":
-        raise ValueError(f"birrd_apply runs on cpu or cuda, not {x.device}")
-    return birrd_switch_cuda(x, _program_codes(x.shape[0], cfg, x.device))
+        return ref.birrd_switch(x, cfg, mask)
+    return birrd_switch_cuda(x, codes, port_mask=mask)
+
+
+def _birrd_reduce_fake(x, group_ids, out_ports):
+    return torch.empty_like(x)
+
+
+_reduce_op = _define("birrd_reduce(Tensor x, int[] group_ids, "
+                     "int[] out_ports) -> Tensor",
+                     _birrd_reduce_impl, _birrd_reduce_fake)
 
 
 def birrd_reduce(x: torch.Tensor, group_ids: Sequence[int],
@@ -127,16 +228,26 @@ def birrd_reduce(x: torch.Tensor, group_ids: Sequence[int],
     zeros elsewhere (junk/bubble ports are masked, as the output buffer's
     write-enable does in hardware).
     """
-    aw = x.shape[0]
-    ports = tuple(int(p) for p in out_ports)
-    cfg, codes = _routed_program(aw, tuple(int(g) for g in group_ids), ports,
-                                 x.device)
-    mask = _out_port_mask(aw, ports, x.device)
-    if x.device.type == "cpu":
-        return ref.birrd_switch(x, cfg, mask)
-    if x.device.type != "cuda":
-        raise ValueError(f"birrd_reduce runs on cpu or cuda, not {x.device}")
-    return birrd_switch_cuda(x, codes, port_mask=mask)
+    return _reduce_op(x, [int(g) for g in group_ids],
+                      [int(p) for p in out_ports])
+
+
+# ------------------------------------------------------------- gqa_decode
+def _gqa_decode_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor) -> torch.Tensor:
+    _device_check("gqa_decode", q)
+    if q.device.type == "cpu":
+        return ref.gqa_decode(q, k, v, lengths)
+    return gqa_decode_cuda(q, k, v, lengths)
+
+
+def _gqa_decode_fake(q, k, v, lengths):
+    return torch.empty_like(q)
+
+
+_gqa_op = _define("gqa_decode(Tensor q, Tensor k, Tensor v, "
+                  "Tensor lengths) -> Tensor",
+                  _gqa_decode_impl, _gqa_decode_fake)
 
 
 def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -148,36 +259,47 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the JAX wrapper's route to the plain version for an S its block does
     not tile has no counterpart, and neither has its ``block_s`` hint.
     """
+    if q.device.type == "cuda":
+        lengths = lengths.to(torch.int32)
+    return _gqa_op(q, k, v, lengths)
+
+
+# ------------------------------------------------------------ linear_scan
+def _linear_scan_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      log_decay: torch.Tensor) -> torch.Tensor:
+    """The kernel (or, on the CPU, the plain chunked version)."""
+    _device_check("linear_scan", q)
     if q.device.type == "cpu":
-        return ref.gqa_decode(q, k, v, lengths)
-    if q.device.type != "cuda":
-        raise ValueError(f"gqa_decode runs on cpu or cuda, not {q.device}")
-    return gqa_decode_cuda(q, k, v, lengths.to(torch.int32))
+        return ref.linear_scan_chunked(q, k, v, log_decay)
+    return linear_scan_cuda(q, k, v, log_decay)
 
 
-class _LinearScan(torch.autograd.Function):
-    """The kernel (or, on the CPU, the plain chunked version) forward; a
-    backward through the plain chunked version, recomputed."""
+def _linear_scan_fake(q, k, v, log_decay):
+    return torch.empty_like(v)
 
-    @staticmethod
-    def forward(ctx, q, k, v, log_decay):
-        ctx.save_for_backward(q, k, v, log_decay)
-        if q.device.type == "cpu":
-            return ref.linear_scan_chunked(q, k, v, log_decay)
-        if q.device.type != "cuda":
-            raise ValueError(f"linear_scan runs on cpu or cuda, not "
-                             f"{q.device}")
-        return linear_scan_cuda(q, k, v, log_decay)
 
-    @staticmethod
-    def backward(ctx, g):
-        ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        # a profiler label (BACKWARD_RANGE), so that a profiled train step
-        # can tell this plain backward's device time from the rest
-        with torch.profiler.record_function(BACKWARD_RANGE), \
-                torch.enable_grad():
-            out = ref.linear_scan_chunked(*ins)
-            return torch.autograd.grad(out, ins, g)
+_scan_op = _define("linear_scan(Tensor q, Tensor k, Tensor v, "
+                   "Tensor log_decay) -> Tensor",
+                   _linear_scan_impl, _linear_scan_fake)
+
+
+def _scan_setup(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def _scan_backward(ctx, g):
+    """Through the plain chunked version, recomputed."""
+    ins = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+    # a profiler label (BACKWARD_RANGE), so that a profiled train step
+    # can tell this plain backward's device time from the rest
+    with torch.profiler.record_function(BACKWARD_RANGE), \
+            torch.enable_grad():
+        out = ref.linear_scan_chunked(*ins)
+        return torch.autograd.grad(out, ins, g)
+
+
+torch.library.register_autograd("repro_torch::linear_scan", _scan_backward,
+                                setup_context=_scan_setup, lib=_LIB)
 
 
 def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,8 +312,58 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``chunk=`` argument (ignored on its kernel path) and the
     ``use_kernels``/``REPRO_SCAN_CHUNK`` switches have no counterpart.
     """
-    return _LinearScan.apply(q, k, v, log_decay)
+    return _scan_op(q, k, v, log_decay)
+
+
+# ------------------------------------------------------------------ work
+def _rir_work(a, b, perm, residual, block_n) -> Work:
+    M, K = a.shape
+    N = b.shape[1]
+    return _rir.work(M, K, N, a.element_size(), residual is not None,
+                     N // block_n)
+
+
+def _gqa_work(q, k, v, lengths) -> Work:
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    return _gqa.work(B, Hq, Hkv, D, B * S, q.element_size())
+
+
+def _scan_work(q, k, v, log_decay) -> Work:
+    B, H, T, dk = q.shape
+    return _scan.work(B, H, T, dk, v.shape[-1], q.element_size(),
+                      log_decay.element_size())
+
+
+def _birrd_work(x, configs) -> Work:
+    aw = x.shape[0]
+    return _birrd.work(aw, x.shape[1], x.element_size(),
+                       program_adds(aw, _configs(aw, configs)))
+
+
+def _reduce_work(x, group_ids, out_ports) -> Work:
+    aw = x.shape[0]
+    cfg = _routed_configs(aw, tuple(group_ids), tuple(out_ports))
+    return _birrd.work(aw, x.shape[1], x.element_size(),
+                       program_adds(aw, cfg))
+
+
+def _birrd_p_work(x, stage_mats) -> Work:
+    return _birrd.dense_work(stage_mats.shape[0], x.shape[0], x.shape[1],
+                             x.element_size())
+
+
+#: operator name (as ``OpOverload.name()`` gives it) -> (the kernel it
+#: launches on the card, its work from the call's arguments)
+WORK: Dict[str, Tuple[str, Callable[..., Work]]] = {
+    "repro_torch::rir_matmul": ("rir_matmul", _rir_work),
+    "repro_torch::gqa_decode": ("gqa_decode", _gqa_work),
+    "repro_torch::linear_scan": ("linear_scan", _scan_work),
+    "repro_torch::birrd_apply": ("birrd_apply", _birrd_work),
+    "repro_torch::birrd_reduce": ("birrd_apply", _reduce_work),
+    "repro_torch::birrd_apply_p": ("birrd_apply", _birrd_p_work),
+}
 
 
 __all__ = ["rir_matmul", "device_perm", "birrd_apply", "birrd_apply_p",
-           "birrd_reduce", "gqa_decode", "linear_scan", "TILE_N"]
+           "birrd_reduce", "gqa_decode", "linear_scan", "TILE_N", "WORK"]

@@ -33,6 +33,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.gpu_cost import Work
+
 from . import build as _build
 from .build import BUILD_DIR  # noqa: F401  (re-exported: where it builds)
 
@@ -254,3 +256,16 @@ def _launch(a: torch.Tensor, b: torch.Tensor, perm: torch.Tensor,
     with _lock:
         _launches += 1
     return out
+
+
+def work(M: int, K: int, N: int, itemsize: int = 4, residual: bool = False,
+         n_blocks: int = 0) -> Work:
+    """One call's work from its shapes alone: ``2 M K N`` operations on
+    the CUDA cores (the kernel multiplies in fp32 whatever its inputs'
+    type), and A, B, the residual and the output moved once, with the
+    ``n_blocks`` int32 perm entries read.  A caller that knows the layer's
+    own output width passes it as ``N`` (the weight's columns may be
+    padded to whole perm blocks)."""
+    nbytes = itemsize * (M * K + K * N + M * N + (M * N if residual else 0)
+                         + n_blocks)
+    return Work(2.0 * M * K * N, float(nbytes), "fp32")

@@ -1,3 +1,4 @@
+# check: ignore-file[api-boundary]  (pedagogical walkthrough of the internals the facade wraps, as examples/layout_coswitch.py)
 """The paper's core feature, end to end, on the port: per-layer (dataflow,
 layout) co-switching with Reorder-In-Reduction, planned across the whole
 network.  The counterpart of ``examples/layout_coswitch.py``:

@@ -8,7 +8,13 @@ from the ``torchrun`` environment (``RANK``, ``WORLD_SIZE``,
 one over an in-process ``HashStore``.  A process group that is already
 initialised (a test's ``FileStore`` world, say) is taken as it is.
 Meshes are ``DeviceMesh``es with dims ``("data", "model")`` or ``("pod",
-"data", "model")``, as in ``repro``.  Importing this module starts
+"data", "model")``, as in ``repro``.  ``init_fake_world`` is the
+counterpart of ``repro``'s 512 placeholder host devices: this process
+joins a world of 256 or 512 ranks on PyTorch's ``fake`` process-group
+backend as rank 0, whose collectives return at once and move nothing, so
+``make_production_mesh(device="cpu")`` builds the production mesh on it
+and a step traced on fake tensors (``repro_torch.launch.dryrun``) sees
+its shapes without a card or a peer.  Importing this module starts
 nothing.
 """
 from __future__ import annotations
@@ -19,7 +25,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
-from repro_torch.device import resolve_device
+# the facade imports this module, so it cannot import the facade
+from repro_torch.device import resolve_device  # check: ignore[api-boundary]
 
 
 def init_distributed(device: str | torch.device = "cuda") -> int:
@@ -53,6 +60,15 @@ def make_local_mesh(model_axis: int = 1, device: str | torch.device = "cuda"
     return init_device_mesh(_device_type(device),
                             (world // model_axis, model_axis),
                             mesh_dim_names=("data", "model"))
+
+
+def init_fake_world(world: int) -> None:
+    """Join a world of ``world`` ranks on the ``fake`` backend as rank 0
+    (no peer, no device: every collective returns at once)."""
+    # importing the module registers the backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world)
 
 
 def make_production_mesh(*, multi_pod: bool = False,

@@ -82,13 +82,13 @@ def parse_args(argv=None) -> argparse.Namespace:
 def _ckpt_tree(model, opt_state, cfg) -> dict:
     """The checkpoint tree in ``repro``'s layout; under a mesh every
     tensor gathered whole (a collective: every rank calls it)."""
-    from repro_torch.distributed.stepfn import full_named
-    from repro_torch.optim import AdamWState
-    from repro_torch.weights import to_repro_adamw_state, to_repro_lm_params
+    from repro_torch.api import (AdamWState, full_named,
+                                 to_repro_adamw_state, to_repro_lm_params)
     whole = AdamWState(step=opt_state.step,
-                       mu=full_named(model, opt_state.mu),
-                       nu=full_named(model, opt_state.nu),
-                       master=full_named(model, opt_state.master))
+                       mu=full_named(model, opt_state.mu, state=True),
+                       nu=full_named(model, opt_state.nu, state=True),
+                       master=full_named(model, opt_state.master,
+                                         state=True))
     return {"params": to_repro_lm_params(full_named(model, model.params()),
                                          cfg),
             "opt": to_repro_adamw_state(whole, cfg)}
@@ -96,13 +96,14 @@ def _ckpt_tree(model, opt_state, cfg) -> dict:
 
 def restore_into(mgr, model, opt_state, cfg) -> Optional[int]:
     """Restore the newest checkpoint into ``model`` and ``opt_state`` in
-    place (under a mesh, each rank its blocks); its step, or None where
-    there is none."""
+    place (under a mesh, each rank its blocks: the parameters' FSDP
+    blocks, the state's ZeRO-1 blocks); its step, or None where there is
+    none."""
     import torch
 
-    from repro_torch.distributed.stepfn import local_named
-    from repro_torch.weights import (repro_adamw_template, repro_lm_template,
-                                     to_torch_adamw_state, to_torch_lm_params)
+    from repro_torch.api import (local_named, repro_adamw_template,
+                                 repro_lm_template, to_torch_adamw_state,
+                                 to_torch_lm_params)
     step, tree = mgr.restore_latest({"params": repro_lm_template(cfg),
                                      "opt": repro_adamw_template(cfg)})
     if step is None:
@@ -115,7 +116,7 @@ def restore_into(mgr, model, opt_state, cfg) -> Optional[int]:
             p.copy_(params[name])
         for own, got in ((opt_state.mu, host.mu), (opt_state.nu, host.nu),
                          (opt_state.master, host.master)):
-            got = local_named(model, got)
+            got = local_named(model, got, state=True)
             for name, t in own.items():
                 t.copy_(got[name])
     opt_state.step = host.step
@@ -143,8 +144,7 @@ def train(args: argparse.Namespace) -> dict:
                          f"ranks: run under python -m "
                          f"torch.distributed.run --nproc-per-node N")
     if "WORLD_SIZE" in os.environ:
-        from repro_torch.distributed.stepfn import checkpoint_shardings
-        from repro_torch.launch.mesh import make_local_mesh
+        from repro_torch.api import checkpoint_shardings, make_local_mesh
         mesh = make_local_mesh(args.model_axis, args.device)
         rank = torch.distributed.get_rank()
     model = build_model(cfg, device=args.device)

@@ -217,7 +217,11 @@ def moe_dispatch(flat: torch.Tensor, idx: torch.Tensor, n_experts: int,
     flat_e = idx.reshape(-1)                                       # (N*K,)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    counts = torch.bincount(sorted_e, minlength=E)
+    # bincount's length depends on the ids' values; a scatter of ones into
+    # E counters is the same integers at a shape a fake tensor can carry
+    counts = torch.zeros(E, dtype=sorted_e.dtype,
+                         device=flat.device).scatter_add_(
+        0, sorted_e, torch.ones_like(sorted_e))
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(N * K, device=flat.device) - starts[sorted_e]
     slot_sorted = torch.where(pos_in_e < C, sorted_e * C + pos_in_e, E * C)

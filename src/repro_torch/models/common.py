@@ -257,3 +257,45 @@ class TensorParallel:
 
 #: the one-device context
 NO_TP = TensorParallel()
+
+
+class Whole:
+    """A ``ParamModule`` seen with its FSDP-split parameters whole over
+    the data group: each parameter that ``place_model`` marked with an
+    ``fsdp`` block (``sharding.DataBlock``) is all-gathered along that
+    block's dim when a block reads it (``p["wq"]``, ``p.wq``,
+    ``p["norm"].named_parameters()``), through the autograd gather whose
+    backward reduce-scatters (sums) its gradient over the group; any other
+    parameter is read as it is.  A view lives for one layer call, so each
+    gather runs once a call (again in the remat recompute) and the whole
+    tensor is dropped with the view."""
+
+    def __init__(self, module: ParamModule):
+        self._module = module
+        self._cache: Dict[str, object] = {}
+
+    def __getitem__(self, name: str):
+        if name not in self._cache:
+            v = getattr(self._module, name)
+            if isinstance(v, ParamModule):
+                v = Whole(v)
+            elif getattr(v, "fsdp", None) is not None:
+                from repro_torch.distributed import collectives as col
+                v = col.all_gather(v, v.fsdp.dim, v.fsdp.group)
+            self._cache[name] = v
+        return self._cache[name]
+
+    def __getattr__(self, name: str):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        try:
+            return self[name]
+        except AttributeError:
+            raise AttributeError(name) from None
+
+    def named_parameters(self):
+        for name, _ in self._module.named_parameters():
+            node = self
+            for part in name.split("."):
+                node = node[part]
+            yield name, node

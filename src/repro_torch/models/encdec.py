@@ -210,7 +210,7 @@ class EncDecModel(LMModel):
         cross-attention over the ``enc_frames`` positions of the memory."""
         cfg = self.cfg
         B = tokens.shape[0]
-        length = cache["length"]
+        length = self._rows(cache["length"])
         lc = cache["layers"]
         pos = torch.clamp(length, 0, MAX_POSITIONS - 1).long()
         x = self._embed(tokens) + self.top.pos_embed[pos]
@@ -228,5 +228,5 @@ class EncDecModel(LMModel):
             x = x + mlp_apply(cfg, layer["ffn"], x[:, None])[:, 0]
         x = apply_norm(cfg.norm, x, self.top.final_norm)
         logits = self.logits(x)
-        length.add_(1)
+        cache["length"].add_(1)
         return cache, logits

@@ -97,7 +97,7 @@ class HybridModel(LMModel):
         k = cfg.shared_attn_every
         x0 = self._embed(tokens)
         x = x0
-        length = cache["length"]
+        length = self._rows(cache["length"])
         sp = self.shared
         for i, layer in enumerate(self.layers):
             x = x + self._mixer_decode(i, layer["mixer"], x, cache["layers"],
@@ -112,7 +112,7 @@ class HybridModel(LMModel):
                 x = x + h
         x = apply_norm(cfg.norm, x, self.top.final_norm)
         logits = self.logits(x)
-        length.add_(1)
+        cache["length"].add_(1)
         return cache, logits
 
     def prefill(self, tokens: torch.Tensor, max_seq: int

@@ -35,7 +35,10 @@ residual stream between blocks follows ``sharding.hidden_sharding``
 else replicated).  ``prefill`` and ``decode_step`` take this data rank's
 rows, keep their caches in the local layout of ``cache_shardings`` (the
 ``length`` of the local rows) and return the local rows' logits over the
-whole vocabulary.  With no mesh no collective is called.
+whole vocabulary.  A parameter that FSDP splits over the data axes (a
+model over 8e9 parameters) is stored as its data block and gathered whole
+for each layer call (``common.Whole``), the embedding and head where they
+are read.  With no mesh no collective is called.
 """
 from __future__ import annotations
 
@@ -51,7 +54,7 @@ from repro_torch.device import resolve_device
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
                      dtype_of, mlp_apply, mlp_specs, moe_apply, moe_specs)
 from .common import (NO_TP, ParamModule, Spec, SpecTree, TensorParallel,
-                     apply_norm, dense, norm_spec)
+                     Whole, apply_norm, dense, norm_spec)
 from .ssm import (mamba2_cache_specs, mamba2_decode, mamba2_specs,
                   mamba2_train, rwkv6_cache_specs, rwkv6_decode, rwkv6_specs,
                   rwkv6_train)
@@ -148,6 +151,9 @@ class LMModel(nn.Module):
     mesh = None
     tp: TensorParallel = NO_TP
     hook = None
+    #: some parameter is split over the data axes by FSDP (set by
+    #: ``place_model``): layers and the embedding are read through ``Whole``
+    fsdp = False
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         super().__init__()
@@ -200,6 +206,21 @@ class LMModel(nn.Module):
         return self
 
     # ---------------------------------------------------------------- forward
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This data rank's rows of ``t``: the cache's ``length``, which
+        every rank holds whole, as ``cache_shardings`` places it."""
+        if self.mesh is None:
+            return t
+        from repro_torch.distributed.stepfn import data_rows
+        return data_rows(t, self.mesh)
+
+    def _view(self, layer: ParamModule):
+        """The layer as its blocks read it: FSDP-split weights gathered."""
+        return Whole(layer) if self.fsdp else layer
+
+    def _top(self, name: str) -> torch.Tensor:
+        return self._view(self.top)[name]
+
     def _tp_for(self, T: int) -> TensorParallel:
         """The context of a call over T positions: the stream sequence-
         sharded where the hook says so (T = 1 in decode: never for a
@@ -216,7 +237,7 @@ class LMModel(nn.Module):
         """The embedding rows of ``tokens`` in ``tp``'s stream layout:
         vocab-parallel under a mesh (each rank looks up the tokens of its
         vocabulary block, zeros elsewhere, and the group sums)."""
-        e = self.top.embed
+        e = self._top("embed")
         if not tp.on:
             return e[tokens.long()]
         if not self._vocab_sharded():
@@ -261,6 +282,7 @@ class LMModel(nn.Module):
 
     def _layer_train(self, x: torch.Tensor, layer: ParamModule,
                      tp: TensorParallel = NO_TP) -> torch.Tensor:
+        layer = self._view(layer)
         x = x + self._mixer_train(layer["mixer"], x, tp)
         return x + self._ffn(layer, x, tp)
 
@@ -281,11 +303,11 @@ class LMModel(nn.Module):
                                use_reentrant=False)
             else:
                 x = self._layer_train(x, layer, tp)
-        return tp.norm(self.cfg.norm, x, self.top.final_norm)
+        return tp.norm(self.cfg.norm, x, self._top("final_norm"))
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        head = self.top.embed.T if self.cfg.tie_embeddings \
-            else self.top.lm_head
+        head = self._top("embed").T if self.cfg.tie_embeddings \
+            else self._top("lm_head")
         return dense(hidden, head)
 
     def loss(self, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -335,7 +357,8 @@ class LMModel(nn.Module):
     def init_cache(self, batch: int, max_seq: int) -> Dict:
         """Zeros on the model's device, nested as ``cache_specs``; under a
         mesh ``batch`` is this data rank's rows and every leaf has its
-        local shape (``stepfn.local_cache_specs``)."""
+        local shape (``stepfn.local_cache_specs``), but ``length``, which
+        holds the rows of every data rank, as ``repro``'s does."""
         def zeros(tree: SpecTree) -> Dict:
             return {n: zeros(s) if isinstance(s, dict) else torch.zeros(
                 s[0], dtype=s[1], device=self.device)
@@ -372,15 +395,16 @@ class LMModel(nn.Module):
         cfg = self.cfg
         tp = self.tp.with_seq(False) if self.mesh is not None else NO_TP
         x = self._embed(tokens, tp)
-        length = cache["length"]
+        length = self._rows(cache["length"])
         for i, layer in enumerate(self.layers):
+            layer = self._view(layer)
             x = x + self._mixer_decode(i, layer["mixer"], x, cache["layers"],
                                        length, tp)
             # the ffn runs on a (B, 1, D) pseudo-sequence, as in JAX
             x = x + self._ffn(layer, x[:, None, :], tp)[:, 0]
-        x = apply_norm(cfg.norm, x, self.top.final_norm)
+        x = apply_norm(cfg.norm, x, self._top("final_norm"))
         logits = self._logits_out(x, tp)
-        length.add_(1)
+        cache["length"].add_(1)
         return cache, logits
 
     def prefill(self, tokens: torch.Tensor, max_seq: int
@@ -403,12 +427,13 @@ class LMModel(nn.Module):
         else:
             ks, vs = cache["layers"]["k"], cache["layers"]["v"]
             for i, layer in enumerate(self.layers):
+                layer = self._view(layer)
                 delta, (k, v) = attn_prefill(cfg, layer["mixer"], x, tp=tp)
                 x = x + delta
                 x = x + self._ffn(layer, x, tp)
                 ks[i, :, :T] = k
                 vs[i, :, :T] = v
-        x = apply_norm(cfg.norm, x, self.top.final_norm)
+        x = apply_norm(cfg.norm, x, self._top("final_norm"))
         logits = self._logits_out(x[:, -1], tp)
         cache["length"].fill_(T)
         return cache, logits

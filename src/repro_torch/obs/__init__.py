@@ -9,11 +9,11 @@ step's modeled cycles/energy), the continuous-batching serve loop, the
 training supervisor, and the whole robustness layer whose counters
 ``python -m repro.runtime.chaos`` verifies injections against.
 
-Every emitted family lives in the ``repro.obs.names`` registry (name +
-label keys); ``repro.check`` lints call sites against it, and the
-inventory below is generated from it.
+Every emitted family lives in the ``repro_torch.obs.names`` registry
+(name + label keys); ``repro_torch.check`` lints call sites against it,
+and the inventory below is generated from it.
 
--- generated by `python -m repro.check docs --write`; do not edit --
+-- generated by `python -m repro_torch.check docs --write`; do not edit --
 Counters:
   ``faults.injected{site=}``
       fault injections fired, by site

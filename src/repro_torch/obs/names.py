@@ -2,12 +2,12 @@
 
 This module is the single source of truth for observability names: the
 counter/gauge/histogram families (with their exact label-key sets) and the
-span families.  ``repro.check`` lints every ``obs.inc_counter`` /
+span families.  ``repro_torch.check`` lints every ``obs.inc_counter`` /
 ``obs.set_gauge`` / ``obs.observe`` / ``obs.span`` / ``obs.record_span``
 call site against it — an unregistered name or a mistyped label key
 (``tiers=`` for ``tier=``) is a lint error, not a silently forked series —
-and the inventory block in the ``repro.obs`` package docstring is generated
-from it (``python -m repro.check docs --write``).
+and the inventory block in the ``repro_torch.obs`` package docstring is
+generated from it (``python -m repro_torch.check docs --write``).
 
 Adding a metric: register it here first (name, label keys, one-line
 description), then emit it.  Keep the registry import-light: this module
@@ -106,7 +106,8 @@ def labels_for(kind: str, name: str) -> Tuple[str, ...]:
 
 
 def render_inventory() -> str:
-    """The generated inventory block for the ``repro.obs`` docstring."""
+    """The generated inventory block for the ``repro_torch.obs``
+    docstring."""
     out = []
     for title, reg in (("Counters", COUNTERS), ("Gauges", GAUGES),
                        ("Histograms", HISTOGRAMS)):

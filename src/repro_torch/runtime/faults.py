@@ -17,11 +17,11 @@ and the chaos smoke (``python -m repro.runtime.chaos``).  Tests rely on them.
 The machine-readable registry is ``SITES`` (injectable sites, each with an
 exported ``PLAN_LOAD``-style constant) and ``RETRY_SITES`` (the superset
 ``repro.runtime.retry`` call sites may label themselves with); the table
-below is generated from it and ``repro.check`` lints every
-``faults.site(...)`` / ``retry_call(site=...)`` literal in ``src/`` against
+below is generated from it and ``repro_torch.check`` lints every
+``faults.site(...)`` / ``retry_call(site=...)`` literal of the port against
 the registry.
 
--- generated by `python -m repro.check docs --write`; do not edit --
+-- generated by `python -m repro_torch.check docs --write`; do not edit --
 ================= =========================================================
 site              fires inside
 ================= =========================================================
@@ -109,7 +109,7 @@ FAULT_EXC_TYPES: Dict[str, type] = {
 # ------------------------------------------------------------- site registry
 # Exported constants for every injectable choke point.  Hardened code passes
 # these to ``site()`` / ``retry_call(site=...)`` instead of re-typing the
-# string; ``repro.check`` flags any literal that does not resolve here.
+# string; ``repro_torch.check`` flags any literal that does not resolve here.
 PLAN_LOAD = "plan.load"
 PLAN_SAVE = "plan.save"
 PLAN_CACHE_IO = "plan_cache.io"
@@ -172,7 +172,8 @@ RETRY_SITES = SITES | frozenset(_RETRY_ONLY_SITE_DOCS)
 
 
 def render_site_table() -> str:
-    """The generated docstring table (``python -m repro.check docs``)."""
+    """The generated docstring table (``python -m repro_torch.check
+    docs``)."""
     rows = list(_SITE_DOCS.items()) + list(_RETRY_ONLY_SITE_DOCS.items())
     left = max(len(f"``{name}``") for name, _ in rows)
     bar = "=" * left + " " + "=" * 57

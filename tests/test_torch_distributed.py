@@ -527,15 +527,26 @@ def test_train_step_matches_repro_mesh(runs, one_steps, arch, short, shape,
 
 
 def test_layout_modes_call_their_collectives(runs):
-    """coswitch reduce-scatters into the sequence-sharded stream; fixed
-    all-reduces and never reduce-scatters (llama has no other
-    reduce-scatter); every mesh run called collectives."""
+    """coswitch reduce-scatters into the sequence-sharded stream over the
+    model group; fixed all-reduces and never reduce-scatters over it
+    (llama has no other reduce-scatter there: the step's ZeRO-1
+    reduce-scatters of the gradients run over the data group); every mesh
+    run called collectives."""
     port = runs["port"]
     for shape in ("1x2", "2x2", "1x4"):
         cos, fix = (port[f"llama/{shape}/{m}"]["calls"]
                     for m in ("coswitch", "fixed"))
-        assert cos["reduce_scatter"] > 0 and cos["all_gather"] > 0
-        assert fix["reduce_scatter"] == 0 and fix["all_reduce"] > 0
+        assert cos["by_dim"].get("reduce_scatter/model", 0) > 0
+        assert cos["all_gather"] > 0
+        assert fix["by_dim"].get("reduce_scatter/model", 0) == 0
+        assert fix["all_reduce"] > 0
+        assert set(fix["by_dim"]) <= {f"{k}/{d}" for k in col_kinds()
+                                      for d in ("model", "data")}
+
+
+def col_kinds():
+    from repro_torch.distributed import collectives as col
+    return tuple(col.CALLS)
 
 
 def test_rwkv6_tests_see_the_scan(runs):

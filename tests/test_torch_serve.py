@@ -269,7 +269,13 @@ for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
             "repro_torch.serve.smoke", "repro_torch.core.accel_models",
             "repro_torch.models.encdec", "repro_torch.models.blocks",
             "repro_torch.configs.whisper_small",
-            "repro_torch.configs.dbrx_132b"):
+            "repro_torch.configs.dbrx_132b", "repro_torch.core.gpu_cost",
+            "repro_torch.core.trace_cost", "repro_torch.launch.dryrun",
+            "repro_torch.launch.specs", "repro_torch.check",
+            "repro_torch.check.__main__", "repro_torch.check.api_lint",
+            "repro_torch.check.docs_gen", "repro_torch.check.plan_lint",
+            "repro_torch.check.registry_lint", "repro_torch.check.smoke",
+            "repro_torch.check.thread_lint"):
     assert mod in names and mod in sys.modules, mod
 """
 

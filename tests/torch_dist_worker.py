@@ -27,8 +27,11 @@ def _model(arch: str, params):
 
 
 def _counts():
+    """Forward collective calls by kind, and under ``by_dim`` their result
+    bytes by ``kind/mesh dimension``."""
     from repro_torch.distributed import collectives as col
-    return dict(col.CALLS)
+    return {**col.CALLS, "by_dim": {f"{k}/{d}": b
+                                    for (k, d), b in col.BYTES.items()}}
 
 
 class clip_seen:
@@ -75,9 +78,105 @@ def train(mesh, arch, params, tokens, mode, steps=1):
     full = full_named(model, {k: v.detach() for k, v in
                               model.params().items()})
     return {"losses": losses, "calls": calls, "gnorm": gnorm,
-            "grads": {k: v.numpy()
-                      for k, v in full_named(model, grads).items()},
+            "grads": {k: v.numpy() for k, v in
+                      full_named(model, grads, state=True).items()},
             "params": {k: v.numpy() for k, v in full.items()}}
+
+
+class sharding_as:
+    """Within the block, placements as a test asks: ``fsdp=True`` forces
+    FSDP (``_wants_fsdp``) and splits every leaf of at least ``min_elems``
+    elements; ``whole=True`` keeps every parameter and its state whole
+    over the data axes (no FSDP, no ZeRO-1: the step that the sharded ones
+    must equal)."""
+
+    def __init__(self, fsdp=False, whole=False, min_elems=0):
+        self.fsdp, self.whole, self.min_elems = fsdp, whole, min_elems
+
+    def __enter__(self):
+        from repro_torch.distributed import sharding, stepfn
+        self._saved = (stepfn._wants_fsdp, sharding.FSDP_MIN_ELEMENTS,
+                       stepfn.opt_shardings)
+        if self.fsdp:
+            stepfn._wants_fsdp = lambda model: True
+            sharding.FSDP_MIN_ELEMENTS = self.min_elems
+        if self.whole:
+            stepfn._wants_fsdp = lambda model: False
+            stepfn.opt_shardings = lambda mesh, p_sh, specs: dict(p_sh)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.distributed import sharding, stepfn
+        (stepfn._wants_fsdp, sharding.FSDP_MIN_ELEMENTS,
+         stepfn.opt_shardings) = self._saved
+
+
+def _held_bytes(tensors):
+    return int(sum(t.numel() * t.element_size() for t in tensors))
+
+
+def fsdp_train(mesh, arch, params, tokens, mode="coswitch", steps=2,
+               fsdp=False, whole=False):
+    """``train`` under ``sharding_as(fsdp, whole)``, and what this rank
+    holds: the bytes of its parameters and of its optimiser state, by
+    name, and whether any parameter is FSDP-split or has a ZeRO-1 block;
+    the first step's updated parameters too."""
+    from repro_torch import api
+    from repro_torch.distributed.stepfn import full_named
+    with sharding_as(fsdp=fsdp, whole=whole):
+        model = _model(arch, params)
+        step = api.make_train_step(model, mesh, layout_mode=mode)
+        opt = api.adamw_init(model.params())
+        held = {"params": {n: _held_bytes([p]) for n, p in
+                           model.params().items()},
+                "state": {n: _held_bytes([opt.mu[n], opt.nu[n],
+                                          opt.master[n]])
+                          for n in opt.mu},
+                "fsdp": sum(p.fsdp is not None
+                            for p in model.params().values()),
+                "zero1": sum(p.zero1 is not None
+                             for p in model.params().values())}
+        losses, first = [], None
+        with clip_seen() as clip:
+            for i in range(steps):
+                opt, met = step(opt, {"tokens": tokens})
+                losses.append(float(met["loss"]))
+                if i == 0:     # copies: a replicated leaf is the parameter
+                    first = {k: v.numpy().copy() for k, v in full_named(
+                        model, {k: v.detach() for k, v in
+                                model.params().items()}).items()}
+        grads, gnorm = clip.seen[0]
+        full = full_named(model, {k: v.detach() for k, v in
+                                  model.params().items()})
+        return {"losses": losses, "gnorm": gnorm, "held": held,
+                "rank": dist.get_rank(), "first": first,
+                "grads": {k: v.numpy() for k, v in
+                          full_named(model, grads, state=True).items()},
+                "params": {k: v.numpy() for k, v in full.items()}}
+
+
+def held(mesh, arch, fsdp=False, min_elems=0):
+    """Every rank's held bytes (parameters and state, by name) after
+    placing the SMOKE ``arch`` for training, gathered to rank 0."""
+    from repro_torch import api
+    from repro_torch.configs import get_config
+    with sharding_as(fsdp=fsdp, min_elems=min_elems):
+        model = api.build_model(get_config(arch, smoke=True), device="cpu")
+        api.make_train_step(model, mesh)
+        opt = api.adamw_init(model.params())
+    mine = {"params": {n: _held_bytes([p]) for n, p in
+                       model.params().items()},
+            "state": {n: _held_bytes([opt.mu[n], opt.nu[n], opt.master[n]])
+                      for n in opt.mu}}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def fsdp_save(mesh, arch, params, directory):
+    """``save`` with FSDP forced on every leaf."""
+    with sharding_as(fsdp=True):
+        return save(mesh, arch, params, directory)
 
 
 def loss(mesh, arch, params, tokens, mode, zero_scan=False):
@@ -152,14 +251,14 @@ def serve(mesh, arch, params, tokens, max_seq, steps):
 
 def train_state(model):
     """An optimiser state at step 3 whose moments are set from the
-    parameters (``mu = p / 2``, ``nu = p p``), so a restore that puts a
-    block in the wrong place shows in them too."""
+    parameters (``mu = p / 2``, ``nu = p p``, on the state's blocks), so a
+    restore that puts a block in the wrong place shows in them too."""
     from repro_torch import api
     opt = api.adamw_init(model.params())
     with torch.no_grad():
-        for name, p in model.params().items():
-            opt.mu[name].copy_(0.5 * p)
-            opt.nu[name].copy_(p * p)
+        for name, w in opt.master.items():
+            opt.mu[name].copy_(0.5 * w)
+            opt.nu[name].copy_(w * w)
     opt.step = 3
     return opt
 
@@ -249,7 +348,8 @@ def meshes(mesh):
 
 TASKS = {"meshes": meshes, "train": train, "loss": loss, "serve": serve,
          "save": save, "ep_slots": ep_slots, "refuse": refuse,
-         "refuse_serve": refuse_serve}
+         "refuse_serve": refuse_serve, "fsdp_train": fsdp_train,
+         "held": held, "fsdp_save": fsdp_save}
 
 
 def run(rank: int, world: int, store: str, tasks, out: str) -> None:
