@@ -183,9 +183,10 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     a step; the step runs ZeRO-1 (every leaf's state a data block, whole
     at one rank: the gradients reduce-scattered onto it, the parameters
     all-gathered from it).
-24. Analysis: three cells of ``repro_torch.launch.dryrun`` (llama3.2-3b
-    and dbrx-132b ``train_4k``, phi3-mini ``decode_32k``, on a fake 16x16
-    world, one microbatch), each in a subprocess with its own time limit,
+24. Analysis: four cells of ``repro_torch.launch.dryrun`` (llama3.2-3b
+    and dbrx-132b ``train_4k``, llama3.2-3b and phi3-mini ``decode_32k``,
+    on a fake 16x16 world, one microbatch), each in a subprocess with its
+    own time limit,
     their per-device bytes, FLOPs, collective bytes by kind and roofline
     terms printed; ``core.trace_cost.Counter`` on the card's real steps at
     full width (the llama3.2-3b decode step at phase 8's shape, one
@@ -195,7 +196,35 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     data-sheet rates), its peak of live bytes beside
     ``max_memory_allocated`` less the arguments; and the host cost of
     ``ops.gqa_decode``, a registered ``torch.library`` operator, against
-    the kernel's binding called directly, over 1,000 calls.
+    the kernel's binding called directly, over 1,000 calls.  llama3.2-3b's
+    ``decode_32k`` cell keeps its cache split by sequence over the 16 model
+    ranks; each cell's roofline row is printed through
+    ``repro_torch.launch.roofline``.
+25. Attention over the model ranks where the heads do not divide them,
+    the split math held on one device (NCCL takes no two ranks on one
+    card): (i) ``gqa_decode_partial`` against ``ref.gqa_decode_partial``
+    on out, m and l at llama3.2-3b's decode shape (B 8, 24/8, D 128, S
+    1024), dbrx's (48/8, S 144) and whisper's cross shape (12/12, D 64, S
+    1500), f32 and bf16, rows of length 0 (``(0, -inf, 0)``) among them,
+    and timed at llama's against ``ops.gqa_decode`` (profiler events, one
+    cache a layer); (ii) llama3.2-3b's ``decode_32k`` attention at full
+    width (B 8, S 32768, bf16, 1.07 GB of K+V) as 16 sequence blocks, each
+    rank's share through ``blocks.seq_block_partial`` (16
+    ``gqa_decode_partial`` launches, counted from 0 around the path) and
+    the log-sum-exp merge (``common.merge_partials``), against one whole
+    ``gqa_decode`` call within phase 7's bf16 tolerance, and the 16 calls
+    plus the merge timed against the one call; (iii) ``chunked_attention``
+    at llama's ``train_4k`` width (T 4096, 24/8, dh 128, f32): the 16
+    query blocks at their offsets, each over the keys up to its last
+    query, against the whole call; (iv) the mesh code's split route on the
+    one-rank NCCL mesh: llama3.2-3b at full width and depth through
+    ``prefill_step`` and 8 ``serve_step``s with its cache placed split by
+    sequence and its attention routed as heads that do not divide the
+    model axis (sequence-split prefill; decode's q/k/v rows gathered,
+    ``gqa_decode_partial`` on the rank's block, the merge's collectives,
+    ``wo``'s row block), against the one-device model on the same weights:
+    identical greedy tokens, 28 ``gqa_decode_partial`` launches a step and
+    no ``gqa_decode`` launch (the kernel line's launches).
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -383,11 +412,21 @@ MESH_EP_REL = 2.0 ** -8   # one bf16 rounding of max |out|
 # (the fake world of 256 ranks cannot share a process with phase 23's NCCL
 # group), traced with one microbatch
 DRY_CELLS = (("llama3p2_3b", "train_4k"), ("dbrx_132b", "train_4k"),
+             ("llama3p2_3b", "decode_32k"),
              ("phi3_mini_3p8b", "decode_32k"))
 DRY_ACCUM = 1
 DRY_TIMEOUT_S = 300
 ROOF_MIN = 0.95           # device time >= ROOF_MIN x the step's bound
 GQA_HOST_CALLS = 1000
+# phase 25: the split paths on one device
+SPLIT_SHAPES = {"llama decode": (24, 8, 128, 1024),
+                "dbrx decode": (48, 8, 128, 144),
+                "whisper cross": (12, 12, 64, 1500)}
+SPLIT_RANKS = 16             # the production mesh's model axis
+SPLIT_DECODE_S = 32768       # decode_32k
+SPLIT_TRAIN_T = 4096         # train_4k
+SPLIT_ML_TOL = {"m": 1e-5, "l": 1e-4}   # f32 sums in another order
+SPLIT_MESH_STEPS = 8
 
 
 def log(msg: str) -> None:
@@ -3155,8 +3194,9 @@ def same_counts(name: str, real, fake) -> None:
 
 
 def phase_analysis(torch, api, gk, record) -> dict:
-    """24. The analysis layer on the card: (a) three dry-run cells
-    (``DRY_CELLS``) on the fake 16x16 world, each in a subprocess;
+    """24. The analysis layer on the card: (a) the dry-run cells
+    (``DRY_CELLS``) on the fake 16x16 world, each in a subprocess, and
+    their roofline rows;
     (b) ``trace_cost.Counter`` on the card's real steps at full width,
     the llama3.2-3b decode step at phase 8's shape and one rwkv6-1.6b
     train step at phase 11's, each counted again on fake CUDA tensors of
@@ -3171,6 +3211,7 @@ def phase_analysis(torch, api, gk, record) -> dict:
 
     from repro_torch.core.trace_cost import Counter
     from repro_torch.kernels import ops
+    from repro_torch.launch import roofline
     procs = dry_cells()
     rec = {}
 
@@ -3307,9 +3348,256 @@ def phase_analysis(torch, api, gk, record) -> dict:
             "flops_by_unit", "bytes_per_device",
             "collective_bytes_per_device", "collective_kinds", "kernels",
             "roofline", "n_params", "n_params_active")}
+        keep["roofline_row"] = roofline.row(cell)
         rec["dryrun"][f"{arch}/{shape}"] = keep
         log(f"[analysis] dry-run {arch} {shape} " + json.dumps(keep))
+        log(f"[analysis] roofline row {arch} {shape} "
+            + json.dumps(keep["roofline_row"]))
     shutil.rmtree(procs[0][2].parent)
+    return rec
+
+
+def phase_split(torch, api, ops, ref, gk) -> dict:
+    """25. Attention over the model ranks where the heads do not divide
+    them, on one device: (i) ``gqa_decode_partial`` against its plain
+    version and timed at llama's decode shape; (ii) llama3.2-3b's
+    ``decode_32k`` attention as ``SPLIT_RANKS`` sequence blocks merged by
+    log-sum-exp against one whole call; (iii) ``chunked_attention``'s
+    query blocks at their offsets against the whole call at ``train_4k``
+    width, f32."""
+    from repro_torch.core import gpu_cost
+    from repro_torch.models import blocks
+    from repro_torch.models.common import chunked_attention, merge_partials
+    gen = torch.Generator(device="cpu").manual_seed(250)
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    rec = {"cases": {}}
+
+    # (i) out, m and l against the plain version
+    for label, (hq, hkv, d, S) in SPLIT_SHAPES.items():
+        lens = torch.tensor([0, 1, S // 3, 256, 257, S // 2, S - 1, S],
+                            dtype=torch.int32).clamp(max=S).to(DEV)
+        for dt, tdt in dts.items():
+            q = torch.randn(8, hq, d, generator=gen).to(DEV, tdt)
+            k = torch.randn(8, S, hkv, d, generator=gen).to(DEV, tdt)
+            v = torch.randn(8, S, hkv, d, generator=gen).to(DEV, tdt)
+            out, m, l = ops.gqa_decode_partial(q, k, v, lens)
+            w_out, w_m, w_l = ref.gqa_decode_partial(q, k, v, lens)
+            name = f"partial {label} {dt}"
+            if not (torch.equal(out[0].float(), torch.zeros_like(
+                    out[0].float())) and torch.all(m[0] == float("-inf"))
+                    and torch.all(l[0] == 0)):
+                raise AssertionError(f"{name}: a row of length 0 is not "
+                                     f"(0, -inf, 0)")
+            rec["cases"][name] = {
+                "out": check_close(name + " out", out, w_out, GQA_TOL[dt],
+                                   GQA_TOL[dt]),
+                "m": check_close(name + " m", m[1:], w_m[1:],
+                                 SPLIT_ML_TOL["m"], SPLIT_ML_TOL["m"]),
+                "l": check_close(name + " l", l[1:], w_l[1:],
+                                 SPLIT_ML_TOL["l"], SPLIT_ML_TOL["m"])}
+    log("[split] partial vs plain " + json.dumps(rec["cases"]))
+
+    # (i) timed at llama's decode shape, one cache a layer, beside the
+    # kernel without (m, l)
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    B, S = LM_BATCH, LM_PROMPT + LM_GEN
+    Hq, Hkv, D, n = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.n_layers
+    q = torch.randn(B, Hq, D, generator=gen).to(DEV, torch.bfloat16)
+    ks = [torch.randn(B, S, Hkv, D, generator=gen).to(DEV, torch.bfloat16)
+          for _ in range(n)]
+    vs = [torch.randn(B, S, Hkv, D, generator=gen).to(DEV, torch.bfloat16)
+          for _ in range(n)]
+    lens = torch.randint(LM_PROMPT, S, (B,), dtype=torch.int32,
+                         generator=gen).to(DEV)
+    part = cycling(lambda i: ops.gqa_decode_partial(q, ks[i], vs[i], lens),
+                   n)
+    whole = cycling(lambda i: ops.gqa_decode(q, ks[i], vs[i], lens), n)
+    plain = cycling(lambda i: ref.gqa_decode_partial(q, ks[i], vs[i], lens),
+                    n)
+    got = ops.gqa_decode_partial(q, ks[0], vs[0], lens)
+    err = check_close("partial llama shape",
+                      got[0], ref.gqa_decode_partial(q, ks[0], vs[0],
+                                                     lens)[0],
+                      GQA_TOL["bf16"], GQA_TOL["bf16"])
+    times = {}
+    for name, fn in (("partial", part), ("gqa_decode", whole),
+                     ("partial", part), ("gqa_decode", whole)):
+        ms, _ = kernel_ms(fn, [gk.KERNEL], iters=4 * n, warmup=n)
+        times.setdefault(name, []).append(ms)
+    plain_ms, _ = kernel_ms(plain, None, iters=2 * n, warmup=2)
+    w = gk.work(B, Hq, Hkv, D, int(lens.sum()), 2, ml=True)
+    rec["llama_times"] = {
+        "B": B, "Hq": Hq, "Hkv": Hkv, "D": D, "S": S, "caches": n,
+        "max_abs_err": err, "ms": min(times["partial"]),
+        "ms_runs": times["partial"],
+        "gqa_decode_ms": min(times["gqa_decode"]),
+        "gqa_decode_ms_runs": times["gqa_decode"], "plain_ms": plain_ms,
+        **gpu_cost.bound_ms(w), "mbytes": w.bytes / 1e6}
+    log("[split] partial timed at llama's decode shape "
+        + json.dumps(rec["llama_times"]))
+    del ks, vs
+    torch.cuda.empty_cache()
+
+    # (ii) decode_32k at full width: 16 sequence blocks, merged
+    m_, Sd = SPLIT_RANKS, SPLIT_DECODE_S
+    Sb = Sd // m_
+    q = torch.randn(B, Hq, D, generator=gen).to(DEV, torch.bfloat16)
+    kb = [torch.randn(B, Sb, Hkv, D, generator=gen).to(DEV, torch.bfloat16)
+          for _ in range(m_)]
+    vb = [torch.randn(B, Sb, Hkv, D, generator=gen).to(DEV, torch.bfloat16)
+          for _ in range(m_)]
+    lens = torch.tensor([1, Sb - 1, Sb, Sb + 1, Sd // 2, Sd - 1000, Sd - 1,
+                         Sd], dtype=torch.int32)[:B].to(DEV)
+
+    def split():
+        parts = [blocks.seq_block_partial(q, kb[r], vb[r], lens, r)
+                 for r in range(m_)]
+        return merge_partials(*(torch.stack(t) for t in zip(*parts))
+                              ).to(q.dtype)
+
+    gk.reset_launch_count()                        # the split path starts
+    got = split()
+    launches = gk.partial_launch_count()           # ... and ends here
+    if launches != m_ or gk.launch_count():
+        raise AssertionError(f"split decode: {launches} partial and "
+                             f"{gk.launch_count()} whole launches, want "
+                             f"{m_} and 0")
+    kw, vw = torch.cat(kb, dim=1), torch.cat(vb, dim=1)
+    want = ops.gqa_decode(q, kw, vw, lens)
+    err = check_close("split decode_32k vs one call", got, want,
+                      GQA_TOL["bf16"], GQA_TOL["bf16"])
+    plain_err = check_close("split decode_32k vs plain", got,
+                            ref.gqa_decode(q, kw, vw, lens),
+                            GQA_TOL["bf16"], GQA_TOL["bf16"])
+    whole_ms, _ = kernel_ms(lambda: ops.gqa_decode(q, kw, vw, lens),
+                            [gk.KERNEL], iters=40, warmup=4)
+    split_ms, split_seen = kernel_ms(split, None, iters=40, warmup=4)
+    wb = gk.work(B, Hq, Hkv, D, int(lens.sum()), 2)
+    rec["decode_32k"] = {
+        "B": B, "S": Sd, "blocks": m_, "lengths": lens.tolist(),
+        "kv_gbytes": 2 * B * Sd * Hkv * D * 2 / 1e9, "launches": launches,
+        "max_abs_err": err, "plain_max_abs_err": plain_err,
+        "split_ms": split_ms, "split_kernels": split_seen,
+        "split_event_ms": cuda_ms(split, iters=10, warmup=2),
+        "whole_ms": whole_ms,
+        "whole_event_ms": cuda_ms(lambda: ops.gqa_decode(q, kw, vw, lens),
+                                  iters=10, warmup=2),
+        "whole_bound_ms": gpu_cost.bound_ms(wb)["bound_ms"]}
+    log("[split] decode_32k in 16 blocks " + json.dumps(rec["decode_32k"]))
+    del kb, vb, kw, vw
+    torch.cuda.empty_cache()
+
+    # (iii) train_4k width: the query blocks at their offsets, f32
+    T, blk = SPLIT_TRAIN_T, SPLIT_TRAIN_T // m_
+    q = torch.randn(1, T, Hq, D, generator=gen).to(DEV)
+    k = torch.randn(1, T, Hkv, D, generator=gen).to(DEV)
+    v = torch.randn(1, T, Hkv, D, generator=gen).to(DEV)
+    whole = chunked_attention(q, k, v)
+    worst = 0.0
+    for r in range(m_):
+        lo, hi = r * blk, (r + 1) * blk
+        got = chunked_attention(q[:, lo:hi], k[:, :hi], v[:, :hi],
+                                q_offset=lo)
+        worst = max(worst, check_close(f"query block {r}", got,
+                                       whole[:, lo:hi], TOL["f32"],
+                                       TOL["f32"]))
+    last = (m_ - 1) * blk
+    rec["train_4k"] = {
+        "T": T, "blocks": m_, "max_abs_err": worst,
+        "whole_ms": cuda_ms(lambda: chunked_attention(q, k, v), iters=3,
+                            warmup=1),
+        "last_block_ms": cuda_ms(lambda: chunked_attention(
+            q[:, last:], k, v, q_offset=last), iters=3, warmup=1),
+        "first_block_ms": cuda_ms(lambda: chunked_attention(
+            q[:, :blk], k[:, :blk], v[:, :blk], q_offset=0), iters=3,
+            warmup=1)}
+    log("[split] train_4k query blocks " + json.dumps(rec["train_4k"]))
+    del q, k, v, whole
+    torch.cuda.empty_cache()
+    rec["mesh_route"] = split_mesh_route(torch, api, gk)
+    return rec
+
+
+def split_mesh_route(torch, api, gk) -> dict:
+    """Phase 25 (iv): llama3.2-3b on the one-rank NCCL mesh, its K/V cache
+    placed split by sequence over the model axis (``cache_shardings`` as it
+    places KV heads that do not divide the axis; at one rank the local
+    shape is the whole cache) and its attention routed as such heads
+    (``TensorParallel(attn_sharded=False)``): ``prefill_step`` then
+    ``SPLIT_MESH_STEPS`` greedy ``serve_step``s against the one-device
+    model's prefill and decode on the same weights."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.distributed import stepfn
+    from repro_torch.models.common import TensorParallel
+    mesh = api.make_local_mesh(1, DEV)
+    cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
+    one = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(LM_SEED))
+    model = api.build_model(cfg, device=DEV).load_params(one.params())
+    toks = torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab, size=(LM_BATCH, LM_PROMPT))).to(DEV)
+    n = SPLIT_MESH_STEPS
+    S = LM_PROMPT + n + 1
+    placed = stepfn.cache_shardings
+
+    def seq_split(mesh_, specs):
+        out = placed(mesh_, specs)
+        for name in ("k", "v"):
+            spec = list(out["layers"][name])
+            spec[2], spec[3] = "model", None          # (L, B, S, Hkv, dh)
+            out["layers"][name] = tuple(spec)
+        return out
+
+    def serve(prefill, decode):
+        cache, logits = prefill(toks)
+        out, lgs = [torch.argmax(logits, -1)], [logits.float()]
+        for _ in range(n):
+            cache, logits = decode(cache, out[-1])
+            out.append(torch.argmax(logits, -1))
+            lgs.append(logits.float())
+        return torch.stack(out, 1), torch.stack(lgs, 1)
+
+    stepfn.cache_shardings = seq_split
+    try:
+        with torch.inference_mode():
+            pre = api.prefill_step(model, mesh, LM_BATCH, LM_PROMPT, S)
+            step = api.serve_step(model, mesh, LM_BATCH, S)
+            model.tp = TensorParallel(model.tp.group, 1, 0,
+                                      attn_sharded=False,
+                                      split=model.tp.split)
+            tok1, lg1 = serve(lambda t: one.prefill(t, S), one.decode_step)
+            gk.reset_launch_count()                # the split route starts
+            tok2, lg2 = serve(pre, step)
+            launches = gk.partial_launch_count()   # ... and ends here
+            whole = gk.launch_count()
+            split = dict(model.kv_split)
+    finally:
+        stepfn.cache_shardings = placed
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": LM_BATCH,
+           "prompt_len": LM_PROMPT, "decode_steps": n, "kv_split": split,
+           "tokens_identical": bool(torch.equal(tok1, tok2)),
+           "max_abs_dlogit": max_err(lg2, lg1),
+           "ref_max_abs": float(lg1.abs().max()),
+           "partial_launches": launches, "gqa_decode_launches": whole}
+    log("[split] mesh route " + json.dumps(rec))
+    del one, model, pre, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not split.get("k"):
+        raise AssertionError(f"the cache was not placed split: {split}")
+    if not rec["tokens_identical"]:
+        raise AssertionError("split route's greedy tokens differ from one "
+                             "device")
+    if rec["max_abs_dlogit"] > GQA_TOL["bf16"] * rec["ref_max_abs"]:
+        raise AssertionError(f"split route's logits {rec['max_abs_dlogit']}"
+                             f" from one device's")
+    if launches != n * cfg.n_layers or whole:
+        raise AssertionError(f"{launches} gqa_decode_partial and {whole} "
+                             f"gqa_decode launches, want "
+                             f"{n * cfg.n_layers} and 0")
     return rec
 
 
@@ -3388,12 +3676,14 @@ def main(argv=None) -> int:
                          record["moe"])
     record["analysis"] = run("analysis", phase_analysis, torch, api, gk,
                              record)
+    record["split"] = run("split", phase_split, torch, api, ops, ref, gk)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
     gq = record["gqa_llama"]
     sc = record["scan_sweep"]["train_shape"]
     bd = record["birrd"]
+    sp = record["split"]["llama_times"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
@@ -3422,7 +3712,14 @@ def main(argv=None) -> int:
         "max_abs_err": bd["max_abs_err"], "ms": bd["ms"],
         "dense_ms": bd["dense_ms"],
         "plain_ms": bd["plain_ms"], "bound_ms": bd["bound_ms"],
-        "bound_by": bd["bound_by"], "library_ms": bd["library_ms"]}]}
+        "bound_by": bd["bound_by"], "library_ms": bd["library_ms"]}, {
+        "name": "gqa_decode_partial", "route": "cuda", "source": GQA_SOURCE,
+        "replaces": GQA_REPLACES,
+        "launches": record["split"]["mesh_route"]["partial_launches"],
+        "block_launches": record["split"]["decode_32k"]["launches"],
+        "max_abs_err": sp["max_abs_err"], "ms": sp["ms"],
+        "plain_ms": sp["plain_ms"], "bound_ms": sp["bound_ms"],
+        "bound_by": sp["bound_by"], "library_ms": None}]}
     record["kernels"] = kernels["kernels"]
     if args.out:
         path = pathlib.Path(args.out)

@@ -6,9 +6,15 @@ H100 SXM5 80GB constants in place of TPU v5e's.  Every rate below is a
 data-sheet figure, not a measurement.  The compute term splits by the
 unit that runs the work: bf16 products on the tensor cores, f32 work on
 the CUDA cores (the port keeps TF32 off, so an f32 product runs there).
-The collective term splits by mesh axis, because an axis that crosses
-nodes rides a different link: ``model`` and ``data`` NVLink, ``pod`` the
-node's network.
+The collective term splits by mesh axis, because an axis whose groups
+cross nodes rides a different link: an HGX/DGX H100 node holds
+``NODE_CARDS`` = 8 cards joined by NVLink, and nodes talk through their
+NICs.  ``axis_bytes_per_s`` gives each axis its link from the mesh's
+shape: on the row-major rank order, a group of the axis that stays inside
+one node gets NVLink, and one that spans nodes the NIC, since its slowest
+hop sets a ring's pace.  On the production 16x16 mesh both axes span
+nodes (``model``'s 16 consecutive ranks cover two, ``data``'s stride of
+16 crosses one at every hop).
 
 ``repro``'s ``collective_bytes_from_hlo`` has no counterpart: the port has
 no HLO, and ``repro_torch.core.trace_cost`` counts a step's collectives as
@@ -19,7 +25,8 @@ which each kernel module states beside its kernel (``work``) and
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, NamedTuple
+import math
+from typing import Dict, Mapping, NamedTuple, Optional
 
 # NVIDIA H100 SXM5 80GB data sheet (spec-sheet figures, not measurements)
 BF16_PEAK_FLOPS = 989e12       # dense bf16 on the tensor cores
@@ -27,11 +34,7 @@ FP32_PEAK_FLOPS = 67e12        # fp32 on the CUDA cores
 HBM_BYTES_PER_S = 3.35e12      # HBM3
 NVLINK_BYTES_PER_S = 450e9     # NVLink 4: 900 GB/s a card, 450 each way
 NIC_BYTES_PER_S = 50e9         # one 400 Gb/s NIC a card
-
-#: the link each mesh axis's collectives ride
-AXIS_BYTES_PER_S = {"model": NVLINK_BYTES_PER_S,
-                    "data": NVLINK_BYTES_PER_S,
-                    "pod": NIC_BYTES_PER_S}
+NODE_CARDS = 8                 # cards an HGX/DGX H100 node joins by NVLink
 #: the peak of each compute unit a count names
 PEAK_FLOPS = {"bf16": BF16_PEAK_FLOPS, "fp32": FP32_PEAK_FLOPS}
 
@@ -90,15 +93,39 @@ class RooflineTerms:
                 "rates": "NVIDIA H100 SXM5 80GB data sheet, not measured"}
 
 
+def axis_bytes_per_s(mesh_shape: Mapping[str, int]) -> Dict[str, float]:
+    """The link rate of each axis of a mesh of ``mesh_shape`` (axis name
+    -> size, in the mesh's order; ranks numbered row-major): NVLink where
+    every group of the axis lies inside one node of ``NODE_CARDS`` ranks,
+    else the NIC."""
+    names, sizes = list(mesh_shape), list(mesh_shape.values())
+    world = math.prod(sizes)
+    out = {}
+    for i, name in enumerate(names):
+        stride = math.prod(sizes[i + 1:])
+        inside = True
+        for base in range(world):
+            if (base // stride) % sizes[i]:
+                continue                     # not the group's first rank
+            last = base + (sizes[i] - 1) * stride
+            inside = inside and base // NODE_CARDS == last // NODE_CARDS
+        out[name] = NVLINK_BYTES_PER_S if inside else NIC_BYTES_PER_S
+    return out
+
+
 def terms_from_counts(flops: Mapping[str, float], nbytes: float,
                       collective_bytes: Mapping[str, float],
-                      chips: int) -> RooflineTerms:
+                      chips: int,
+                      mesh_shape: Optional[Mapping[str, int]] = None
+                      ) -> RooflineTerms:
     """The three terms in seconds from PER-DEVICE counts: ``flops`` by unit
     (``{"bf16": ..., "fp32": ...}``), ``nbytes`` of HBM traffic, and the
-    collective bytes by mesh axis (an axis's collectives serialise on its
-    link; the axes' times add)."""
-    by_axis = {ax: b / AXIS_BYTES_PER_S[ax]
-               for ax, b in collective_bytes.items()}
+    collective bytes by mesh axis, each over its link on a mesh of
+    ``mesh_shape`` (``axis_bytes_per_s``; an axis's collectives serialise
+    on its link, the axes' times add).  ``mesh_shape`` may be left out
+    where there are no collective bytes."""
+    rates = axis_bytes_per_s(mesh_shape or {})
+    by_axis = {ax: b / rates[ax] for ax, b in collective_bytes.items()}
     return RooflineTerms(
         compute_s=sum(f / PEAK_FLOPS[u] for u, f in flops.items()),
         memory_s=nbytes / HBM_BYTES_PER_S,
@@ -108,12 +135,15 @@ def terms_from_counts(flops: Mapping[str, float], nbytes: float,
         collective_s_by_axis=by_axis, chips=chips)
 
 
-def model_flops(n_params_active: float, tokens: float) -> float:
-    """MODEL_FLOPS = 6 * N * D (dense) or 6 * N_active * D (MoE)."""
-    return 6.0 * n_params_active * tokens
+def model_flops(n_params_active: float, tokens: float,
+                train: bool = True) -> float:
+    """MODEL_FLOPS = 6 * N * D (dense) or 6 * N_active * D (MoE) for a
+    train step; 2 * N_active * D for a forward pass alone (prefill,
+    decode)."""
+    return (6.0 if train else 2.0) * n_params_active * tokens
 
 
-__all__ = ["AXIS_BYTES_PER_S", "BF16_PEAK_FLOPS", "FP32_PEAK_FLOPS",
-           "HBM_BYTES_PER_S", "NIC_BYTES_PER_S", "NVLINK_BYTES_PER_S",
-           "PEAK_FLOPS", "RooflineTerms", "Work", "bound_ms", "model_flops",
-           "terms_from_counts"]
+__all__ = ["BF16_PEAK_FLOPS", "FP32_PEAK_FLOPS", "HBM_BYTES_PER_S",
+           "NIC_BYTES_PER_S", "NODE_CARDS", "NVLINK_BYTES_PER_S",
+           "PEAK_FLOPS", "RooflineTerms", "Work", "axis_bytes_per_s",
+           "bound_ms", "model_flops", "terms_from_counts"]

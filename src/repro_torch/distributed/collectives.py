@@ -221,6 +221,21 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     return _all_reduce(x.detach(), group, dist.ReduceOp.MAX)
 
 
+def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                   group) -> torch.Tensor:
+    """``models.common.merge_partials`` over the ranks of ``group``, each
+    holding one split's ``o`` (..., D) and row statistics ``m``, ``l``
+    (...): the max of ``m`` (``all_reduce_max``), then one sum of the
+    weighted outputs packed beside their weights; (..., D) f32 on every
+    rank, 0 where every split is empty."""
+    from repro_torch.models.common import lse_weights
+    w = lse_weights(m, l, all_reduce_max(m, group))
+    packed = all_reduce(torch.cat([w[..., None] * o.float(), w[..., None]],
+                                  dim=-1), group)
+    den = packed[..., -1:]
+    return packed[..., :-1] / torch.where(den > 0, den, 1.0)
+
+
 def copy(x: torch.Tensor, group) -> torch.Tensor:
     """Identity forward; the gradients summed over ``group`` backward."""
     return _Copy.apply(x, group)

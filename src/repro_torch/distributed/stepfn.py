@@ -62,11 +62,11 @@ def _refuse(model, m: int, fsdp: bool) -> None:
             f"(no config of it reaches 8e9 parameters)")
     if m == 1:
         return
-    if cfg.family == "encdec" or _is_mamba2(cfg):
+    if _is_mamba2(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the {cfg.family} family "
-            f"(mamba2, whisper) is not ported: model axis {m} above 1; "
-            f"ROADMAP.md Queue 1 item 10b")
+            f"{cfg.name}: tensor parallelism for the mamba2 mixer of the "
+            f"{cfg.family} family is not ported: model axis {m} above 1; "
+            f"ROADMAP.md Queue 1 item 10b (b)")
     if _is_rwkv(cfg):
         from repro_torch.models.ssm import _LORA_RANK, _dims
         heads = _dims(cfg)[2]
@@ -128,7 +128,7 @@ def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
                 p.zero1 = DataBlock(zd, dg, dsize, drank) \
                     if zd is not None and split is None else None
     split = frozenset(n.rsplit(".", 1)[-1] for n, spec in sh.items()
-                      if n.rsplit(".", 1)[-1] in ("embed", "mu")
+                      if n.rsplit(".", 1)[-1] in ("embed", "mu", "pos_embed")
                       and "model" in spec)
     model.fsdp = any(p.fsdp is not None for p in model.params().values())
     model.placement = {"params": sh, "state": z1, "layers": layers}
@@ -218,11 +218,15 @@ def data_rows(x: torch.Tensor, mesh) -> torch.Tensor:
 
 def local_cache_specs(model, batch: int, max_seq: int) -> Dict:
     """The model's cache specs for ``batch`` local rows, each leaf in its
-    local shape under ``cache_shardings`` (``length`` per local row)."""
+    local shape under ``cache_shardings`` (``length`` per local row).
+    Records on the model which attention caches that placement splits by
+    sequence over the model axis (``model.kv_split``: KV heads that do not
+    divide it, and a length that does)."""
     mesh = model.mesh
     sizes = axis_sizes(mesh)
     specs = model.cache_specs(batch * data_size(mesh), max_seq)
     placed = cache_shardings(mesh, specs)
+    split = {}
 
     def walk(tree, sh):
         out = {}
@@ -235,13 +239,8 @@ def local_cache_specs(model, batch: int, max_seq: int) -> Dict:
                 out[n] = (shape, dt)
                 continue
             spec = sh[n]
-            if n in ("k", "v", "ck", "cv", "attn_k", "attn_v") \
-                    and spec[2] == "model":
-                raise NotImplementedError(
-                    f"{model.cfg.name}: {model.cfg.n_kv_heads} KV heads do "
-                    f"not split over a model axis of {sizes['model']}, and "
-                    f"split-sequence decode is not ported: ROADMAP.md Queue "
-                    f"1 item 10b")
+            if n in ("k", "ck", "attn_k"):
+                split[n] = spec[2] == "model"
             local = []
             for dim, ax in zip(shape, spec):
                 axes = () if ax is None else (
@@ -250,7 +249,9 @@ def local_cache_specs(model, batch: int, max_seq: int) -> Dict:
             out[n] = (tuple(local), dt)
         return out
 
-    return walk(specs, placed)
+    out = walk(specs, placed)
+    model.kv_split = split
+    return out
 
 
 # ------------------------------------------------------------------ train

@@ -59,8 +59,19 @@
 //   never touches a row past the length.
 //
 // A row whose length is <= 0 has no valid position: its output is 0 (the
-// TPU kernel gives the mean of V, the plain versions NaN); decode always
+// TPU kernel gives the mean of V, the plain version NaN); decode always
 // passes length + 1 >= 1.
+//
+// Each row's (m, l) beside its output, where the caller asks for them
+// (row_m, row_l not null: the partial variant, for attention whose cache
+// is split by sequence over ranks that merge by log-sum-exp): m is the
+// row's largest scaled score (natural-log units, as expf uses them) and
+// l = sum exp(s - m) over its valid positions, both f32.  All three exits
+// store them: a row of one valid split from the CTA's own merge, a row of
+// several from the merging CTA (m_star, l_sum), and a row of length <= 0
+// as (m, l) = (-inf, 0) beside its zero output, which every merge weighs
+// 0.  Length 0 is the normal case there: a rank whose sequence block lies
+// wholly past a row's length sees local length 0.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libgqa_decode.so gqa_decode.cu
@@ -340,8 +351,9 @@ __global__ void __launch_bounds__(kMaxWarps * 32)
 gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, const int* __restrict__ lengths,
                   int* __restrict__ counters, float* __restrict__ part_ml,
-                  float* __restrict__ part_acc, T* __restrict__ out, int Hq,
-                  int Hkv, int S, int D, int n_split, float scale) {
+                  float* __restrict__ part_acc, T* __restrict__ out,
+                  float* __restrict__ row_m, float* __restrict__ row_l,
+                  int Hq, int Hkv, int S, int D, int n_split, float scale) {
   constexpr int E = kPiece8<T>;            // elements a lane's 8-byte piece
   const int split = blockIdx.x;
   const int b = blockIdx.z;
@@ -363,6 +375,10 @@ gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (split >= n_valid) {
     if (split == 0) {                      // length <= 0: the output is 0
       for (int i = tid; i < ng * D; i += blockDim.x) outb[i] = from_f32<T>(0.f);
+      if (row_m != nullptr && tid < ng) {
+        row_m[qrow0 + tid] = -__int_as_float(0x7f800000);   // -inf
+        row_l[qrow0 + tid] = 0.0f;
+      }
     }
     return;                                // nothing valid: never merged
   }
@@ -493,6 +509,10 @@ gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // the row's only split: the merge below with one split, whose
       // weights are exp(0) = 1, gives exactly this
       outb[i] = from_f32<T>(ac * (1.0f / fmaxf(lc, 1e-30f)));
+      if (row_m != nullptr && d == 0) {
+        row_m[qrow0 + g] = mc;
+        row_l[qrow0 + g] = lc;
+      }
     } else {
       const size_t r = (base + split) * G + g0 + g;
       part_acc[r * D + d] = ac;
@@ -532,6 +552,10 @@ gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       o += expf(__ldcg(part_ml + 2 * r) - m_star) * __ldcg(part_acc + r * D + d);
     }
     outb[i] = from_f32<T>(o * inv);
+    if (row_m != nullptr && d == 0) {
+      row_m[qrow0 + g] = m_star;
+      row_l[qrow0 + g] = l_sum;
+    }
   }
   if (tid == 0) *counter = 0;              // every valid split has counted
 }
@@ -539,9 +563,9 @@ gqa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int GC, int UR>
 int launch_kernel(const void* q, const void* k, const void* v,
                   const void* lengths, void* counters, void* part_ml,
-                  void* part_acc, void* out, int Hq, int Hkv, int S, int D,
-                  int n_split, float scale, dim3 grid, int nw, size_t smem,
-                  cudaStream_t st) {
+                  void* part_acc, void* out, void* row_m, void* row_l,
+                  int Hq, int Hkv, int S, int D, int n_split, float scale,
+                  dim3 grid, int nw, size_t smem, cudaStream_t st) {
   auto* kern = gqa_decode_kernel<T, GC, UR>;
   // the opt-in (and the carveout that lets three CTAs share an SM) is set
   // once per instantiation and device, not per launch
@@ -564,7 +588,8 @@ int launch_kernel(const void* q, const void* k, const void* v,
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
       static_cast<int*>(counters), static_cast<float*>(part_ml),
-      static_cast<float*>(part_acc), static_cast<T*>(out), Hq, Hkv, S, D,
+      static_cast<float*>(part_acc), static_cast<T*>(out),
+      static_cast<float*>(row_m), static_cast<float*>(row_l), Hq, Hkv, S, D,
       n_split, scale);
   return static_cast<int>(cudaGetLastError());
 }
@@ -572,14 +597,15 @@ int launch_kernel(const void* q, const void* k, const void* v,
 template <typename T, int GC>
 int launch_gc(const void* q, const void* k, const void* v, const void* lengths,
               void* counters, void* part_ml, void* part_acc, void* out,
-              int Hq, int Hkv, int S, int D, int n_split, float scale,
-              dim3 grid, int nw, size_t smem, cudaStream_t st) {
+              void* row_m, void* row_l, int Hq, int Hkv, int S, int D,
+              int n_split, float scale, dim3 grid, int nw, size_t smem,
+              cudaStream_t st) {
   // 8-byte pieces a V row has, over the 32 lanes
   const int ur = (D / kPiece8<T> + 31) / 32;
 #define GQA_LAUNCH(UR)                                                      \
   return launch_kernel<T, GC, UR>(q, k, v, lengths, counters, part_ml,     \
-                                  part_acc, out, Hq, Hkv, S, D, n_split,   \
-                                  scale, grid, nw, smem, st)
+                                  part_acc, out, row_m, row_l, Hq, Hkv, S, \
+                                  D, n_split, scale, grid, nw, smem, st)
   if (ur <= 1) GQA_LAUNCH(1);
   if (ur <= 2) GQA_LAUNCH(2);
   GQA_LAUNCH(4);
@@ -593,9 +619,9 @@ __host__ __device__ constexpr int group_width(int G) {
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
-           void* counters, void* part_ml, void* part_acc, void* out, int B,
-           int Hq, int Hkv, int S, int D, int n_split, float scale,
-           void* stream) {
+           void* counters, void* part_ml, void* part_acc, void* out,
+           void* row_m, void* row_l, int B, int Hq, int Hkv, int S, int D,
+           int n_split, float scale, void* stream) {
   if (B <= 0 || B > 65535 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 ||
       S <= 0 || D < kMinD || D > kMaxD || D % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -606,7 +632,8 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   const int nw = warps_for(D, sizeof(T));
   const int split = split_for(D, sizeof(T));
   if ((long long)Hkv * n_groups > 65535 ||
-      n_split != (S + split - 1) / split) {
+      n_split != (S + split - 1) / split ||
+      (row_m == nullptr) != (row_l == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(nw, gc, D, sizeof(T));
@@ -614,18 +641,18 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (gc) {
     case 1: return launch_gc<T, 1>(q, k, v, lengths, counters, part_ml,
-                                   part_acc, out, Hq, Hkv, S, D, n_split,
-                                   scale, grid, nw, smem, st);
+                                   part_acc, out, row_m, row_l, Hq, Hkv, S,
+                                   D, n_split, scale, grid, nw, smem, st);
     case 2: return launch_gc<T, 2>(q, k, v, lengths, counters, part_ml,
-                                   part_acc, out, Hq, Hkv, S, D, n_split,
-                                   scale, grid, nw, smem, st);
+                                   part_acc, out, row_m, row_l, Hq, Hkv, S,
+                                   D, n_split, scale, grid, nw, smem, st);
     case 4: return launch_gc<T, 4>(q, k, v, lengths, counters, part_ml,
-                                   part_acc, out, Hq, Hkv, S, D, n_split,
-                                   scale, grid, nw, smem, st);
+                                   part_acc, out, row_m, row_l, Hq, Hkv, S,
+                                   D, n_split, scale, grid, nw, smem, st);
     default: return launch_gc<T, kMaxGroup>(q, k, v, lengths, counters,
-                                            part_ml, part_acc, out, Hq, Hkv,
-                                            S, D, n_split, scale, grid, nw,
-                                            smem, st);
+                                            part_ml, part_acc, out, row_m,
+                                            row_l, Hq, Hkv, S, D, n_split,
+                                            scale, grid, nw, smem, st);
   }
 }
 
@@ -637,21 +664,25 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
 // n_groups], all 0 before the first call (the kernel leaves them 0), and
 // the partials part_ml f32[B, Hkv, n_split, G, 2] and part_acc f32[B, Hkv,
 // n_split, G, D]; n_split = ceil(S / split_for(D, elem)), checked.
+// row_m and row_l: f32[B, Hq] each, or both null (no (m, l) stored).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int gqa_decode_f32(const void* q, const void* k, const void* v,
                               const void* lengths, void* counters,
                               void* part_ml, void* part_acc, void* out,
-                              int B, int Hq, int Hkv, int S, int D,
-                              int n_split, float scale, void* stream) {
-  return launch<float>(q, k, v, lengths, counters, part_ml, part_acc, out, B,
-                       Hq, Hkv, S, D, n_split, scale, stream);
+                              void* row_m, void* row_l, int B, int Hq,
+                              int Hkv, int S, int D, int n_split, float scale,
+                              void* stream) {
+  return launch<float>(q, k, v, lengths, counters, part_ml, part_acc, out,
+                       row_m, row_l, B, Hq, Hkv, S, D, n_split, scale, stream);
 }
 
 extern "C" int gqa_decode_bf16(const void* q, const void* k, const void* v,
                                const void* lengths, void* counters,
                                void* part_ml, void* part_acc, void* out,
-                               int B, int Hq, int Hkv, int S, int D,
-                               int n_split, float scale, void* stream) {
+                               void* row_m, void* row_l, int B, int Hq,
+                               int Hkv, int S, int D, int n_split,
+                               float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, lengths, counters, part_ml, part_acc,
-                               out, B, Hq, Hkv, S, D, n_split, scale, stream);
+                               out, row_m, row_l, B, Hq, Hkv, S, D, n_split,
+                               scale, stream);
 }

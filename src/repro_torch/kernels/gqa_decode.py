@@ -18,6 +18,13 @@ module keeps per (device, stream), grown on demand and never shared by two
 streams; the kernel leaves the counters at 0, so after the first call on a
 stream the output is the only allocation a call makes.
 
+``gqa_decode_partial_cuda`` is the same launch asked also for each row's
+``(m, l)`` (f32 ``(B, Hq)``: the largest scaled score and ``sum exp(s -
+m)``), which the kernel stores on every exit, ``(-inf, 0)`` beside the
+zero output of a row of length 0: what ranks holding a cache split by
+sequence need to merge their outputs by log-sum-exp.  It counts its
+launches apart (``partial_launch_count``).
+
 Build: at first CUDA use ``build.load`` compiles the source with ``nvcc``
 for ``sm_90a`` into ``build/kernels/`` and binds it with ``ctypes``.
 Importing this module builds nothing.  There is no fallback: a CUDA tensor
@@ -57,12 +64,13 @@ D_MIN, D_MAX = 16, 256
 #: shared memory a block may opt in to on Hopper
 MAX_SMEM = 232448
 DTYPES = (torch.float32, torch.bfloat16)
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 \
+_ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_void_p]
 
 _lock = threading.Lock()
 _lib = None
 _launches = 0
+_partial_launches = 0
 #: workspace per (device index, stream handle): the int32 arrival
 #: counters (kept at 0 by the kernel) and the f32 partials
 _workspaces: dict = {}
@@ -89,14 +97,21 @@ def load() -> ctypes.CDLL:
 
 
 def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count``."""
+    """``gqa_decode_cuda`` launches since the last ``reset_launch_count``."""
     return _launches
 
 
+def partial_launch_count() -> int:
+    """``gqa_decode_partial_cuda`` launches since the last
+    ``reset_launch_count``."""
+    return _partial_launches
+
+
 def reset_launch_count() -> None:
-    global _launches
+    """Set both counts to 0."""
+    global _launches, _partial_launches
     with _lock:
-        _launches = 0
+        _launches = _partial_launches = 0
 
 
 def group_width(G: int) -> int:
@@ -204,6 +219,38 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              "aligned (the kernel loads 16 bytes at a time)")
 
 
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            lengths: torch.Tensor, ml: bool) -> tuple:
+    """One launch; returns ``(out, m, l)``, ``m`` and ``l`` None unless
+    ``ml``."""
+    _check(q, k, v, lengths)
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    item = q.element_size()
+    lib = load()
+    fn = lib.gqa_decode_f32 if q.dtype == torch.float32 \
+        else lib.gqa_decode_bf16
+    n_cnt, n_ml, acc = workspace_sizes(B, Hq, Hkv, S, D, item)
+    stream = torch.cuda.current_stream(q.device)
+    cnt, part = _workspace(q.device, stream, n_cnt, n_ml + acc)
+    out = torch.empty_like(q)
+    m = l = None
+    if ml:
+        m = torch.empty((B, Hq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
+                 cnt.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * n_ml,
+                 out.data_ptr(), None if m is None else m.data_ptr(),
+                 None if l is None else l.data_ptr(),
+                 B, Hq, Hkv, S, D, n_splits(S, D, item), 1.0 / (D ** 0.5),
+                 stream.cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gqa_decode launch failed: cudaError_t {err} "
+                           f"(B={B} Hq={Hq} Hkv={Hkv} S={S} D={D})")
+    return out, m, l
+
+
 def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     lengths: torch.Tensor) -> torch.Tensor:
     """Launch the kernel: ``(B, Hq, D)`` in q's dtype.
@@ -214,40 +261,36 @@ def gqa_decode_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output is the call's only allocation once the stream has a workspace
     large enough.
     """
-    _check(q, k, v, lengths)
     global _launches
-    B, Hq, D = q.shape
-    _, S, Hkv, _ = k.shape
-    item = q.element_size()
-    lib = load()
-    fn = lib.gqa_decode_f32 if q.dtype == torch.float32 \
-        else lib.gqa_decode_bf16
-    n_cnt, ml, acc = workspace_sizes(B, Hq, Hkv, S, D, item)
-    stream = torch.cuda.current_stream(q.device)
-    cnt, part = _workspace(q.device, stream, n_cnt, ml + acc)
-    out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                 cnt.data_ptr(), part.data_ptr(), part.data_ptr() + 4 * ml,
-                 out.data_ptr(),
-                 B, Hq, Hkv, S, D, n_splits(S, D, item), 1.0 / (D ** 0.5),
-                 stream.cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"gqa_decode launch failed: cudaError_t {err} "
-                           f"(B={B} Hq={Hq} Hkv={Hkv} S={S} D={D})")
+    out, _, _ = _launch(q, k, v, lengths, False)
     with _lock:
         _launches += 1
     return out
 
 
-def work(B: int, Hq: int, Hkv: int, D: int, rows: int, itemsize: int
-         ) -> Work:
+def gqa_decode_partial_cuda(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, lengths: torch.Tensor
+                            ) -> tuple:
+    """The kernel with each row's ``(m, l)``: ``(out (B, Hq, D) in q's
+    dtype, m (B, Hq) f32, l (B, Hq) f32)``; a row of length <= 0 gives
+    ``(0, -inf, 0)``.  Launched as ``gqa_decode_cuda`` is."""
+    global _partial_launches
+    out = _launch(q, k, v, lengths, True)
+    with _lock:
+        _partial_launches += 1
+    return out
+
+
+def work(B: int, Hq: int, Hkv: int, D: int, rows: int, itemsize: int,
+         ml: bool = False) -> Work:
     """One call's work from its shapes alone: ``rows`` K/V rows read over
     the batch (the sum of the lengths where the caller knows them; ``B
     S``, every cache row, an upper bound, where it does not), q and the
     output moved once and the int32 lengths read; q.k and p.v over those
     rows, 2 operations a multiply-add, on the tensor cores for a 2-byte
-    type."""
-    nbytes = itemsize * (2 * rows * Hkv * D + 2 * B * Hq * D) + 4 * B
+    type.  ``ml``: the partial variant, which also writes each row's f32
+    ``(m, l)``, 8 bytes a (b, query head)."""
+    nbytes = itemsize * (2 * rows * Hkv * D + 2 * B * Hq * D) + 4 * B \
+        + (8 * B * Hq if ml else 0)
     return Work(4.0 * rows * Hq * D, float(nbytes),
                 "bf16" if itemsize == 2 else "fp32")

@@ -46,7 +46,7 @@ from . import rir_matmul as _rir
 from .birrd_reduce import (_out_port_mask, _program_codes, _routed_configs,
                            _routed_program, birrd_apply_cuda,
                            birrd_switch_cuda, program_adds)
-from .gqa_decode import gqa_decode_cuda
+from .gqa_decode import gqa_decode_cuda, gqa_decode_partial_cuda
 from .linear_scan import linear_scan_cuda
 from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
 
@@ -264,6 +264,38 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _gqa_op(q, k, v, lengths)
 
 
+def _gqa_partial_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor):
+    _device_check("gqa_decode_partial", q)
+    if q.device.type == "cpu":
+        return ref.gqa_decode_partial(q, k, v, lengths)
+    return gqa_decode_partial_cuda(q, k, v, lengths)
+
+
+def _gqa_partial_fake(q, k, v, lengths):
+    ml = q.new_empty(q.shape[:2], dtype=torch.float32)
+    return torch.empty_like(q), ml, torch.empty_like(ml)
+
+
+_gqa_partial_op = _define("gqa_decode_partial(Tensor q, Tensor k, Tensor v, "
+                          "Tensor lengths) -> (Tensor, Tensor, Tensor)",
+                          _gqa_partial_impl, _gqa_partial_fake)
+
+
+def gqa_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``gqa_decode`` with each row's softmax statistics, for attention
+    over a cache split by sequence: ``(out (B, Hq, D) in q's dtype, m (B,
+    Hq) f32, l (B, Hq) f32)``, ``m`` the row's largest scaled score and
+    ``l = sum exp(s - m)`` over its first ``lengths[b]`` positions; a row
+    of length 0 gives ``(0, -inf, 0)``.  The splits' outputs merge by
+    log-sum-exp (``models.common.merge_partials``)."""
+    if q.device.type == "cuda":
+        lengths = lengths.to(torch.int32)
+    return _gqa_partial_op(q, k, v, lengths)
+
+
 # ------------------------------------------------------------ linear_scan
 def _linear_scan_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       log_decay: torch.Tensor) -> torch.Tensor:
@@ -329,6 +361,12 @@ def _gqa_work(q, k, v, lengths) -> Work:
     return _gqa.work(B, Hq, Hkv, D, B * S, q.element_size())
 
 
+def _gqa_partial_work(q, k, v, lengths) -> Work:
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    return _gqa.work(B, Hq, Hkv, D, B * S, q.element_size(), ml=True)
+
+
 def _scan_work(q, k, v, log_decay) -> Work:
     B, H, T, dk = q.shape
     return _scan.work(B, H, T, dk, v.shape[-1], q.element_size(),
@@ -358,6 +396,8 @@ def _birrd_p_work(x, stage_mats) -> Work:
 WORK: Dict[str, Tuple[str, Callable[..., Work]]] = {
     "repro_torch::rir_matmul": ("rir_matmul", _rir_work),
     "repro_torch::gqa_decode": ("gqa_decode", _gqa_work),
+    "repro_torch::gqa_decode_partial": ("gqa_decode_partial",
+                                        _gqa_partial_work),
     "repro_torch::linear_scan": ("linear_scan", _scan_work),
     "repro_torch::birrd_apply": ("birrd_apply", _birrd_work),
     "repro_torch::birrd_reduce": ("birrd_apply", _reduce_work),
@@ -366,4 +406,5 @@ WORK: Dict[str, Tuple[str, Callable[..., Work]]] = {
 
 
 __all__ = ["rir_matmul", "device_perm", "birrd_apply", "birrd_apply_p",
-           "birrd_reduce", "gqa_decode", "linear_scan", "TILE_N", "WORK"]
+           "birrd_reduce", "gqa_decode", "gqa_decode_partial", "linear_scan",
+           "TILE_N", "WORK"]

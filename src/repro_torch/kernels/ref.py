@@ -9,7 +9,7 @@ weights, ``(R, S, M)`` depthwise weights, ``(B, S, Hkv, D)`` KV caches,
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -169,6 +169,33 @@ def gqa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bhgs,bshd->bhgd", w, v.float())
     return out.reshape(B, Hq, D).to(q.dtype)
+
+
+def gqa_decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       lengths: torch.Tensor,
+                       scale: Optional[float] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``gqa_decode`` with each row's softmax statistics: ``(out (B, Hq, D)
+    in q's dtype, m (B, Hq) f32, l (B, Hq) f32)``, ``m`` the row's largest
+    scaled score over its first ``lengths[b]`` positions and ``l = sum
+    exp(s - m)`` over them.  A row of length <= 0 is ``(0, -inf, 0)``, no
+    NaN: the merge of a sequence split weighs it 0."""
+    B, Hq, D = q.shape
+    _, S, Hkv, _ = k.shape
+    G = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / (D ** 0.5)
+    qg = q.reshape(B, Hkv, G, D)
+    scores = torch.einsum("bhgd,bshd->bhgs", qg.float(), k.float()) * scale
+    pos = torch.arange(S, device=q.device)
+    mask = pos[None, None, None, :] < lengths[:, None, None, None]
+    scores = scores.masked_fill(~mask, float("-inf"))
+    m = scores.amax(dim=-1)
+    p = torch.exp(scores - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1)
+    out = torch.einsum("bhgs,bshd->bhgd", p, v.float()) \
+        / torch.where(l > 0, l, 1.0)[..., None]
+    return (out.reshape(B, Hq, D).to(q.dtype), m.reshape(B, Hq),
+            l.reshape(B, Hq))
 
 
 # ---------------------------------------------------------------- linear_scan

@@ -3,8 +3,8 @@
 
 The counterpart of ``repro.launch.dryrun``.  Proves the distribution
 config is coherent without hardware: the production mesh is built over a
-fake world of 256 or 512 ranks (``make_production_mesh(fake=True)``, this
-process rank 0), the cell's model is built at full width and depth under a
+fake world of 256 or 512 ranks (``make_production_mesh``), the cell's
+model is built at full width and depth under a
 ``FakeTensorMode`` (no parameter has storage), placed on the mesh (FSDP
 above 8e9 parameters, ZeRO-1 for the optimiser state), and one step (the
 train step with ``accum`` microbatches, ``prefill_step`` or
@@ -12,6 +12,13 @@ train step with ``accum`` microbatches, ``prefill_step`` or
 ``core.trace_cost.Counter``.  It writes the step's per-device counts and
 their roofline terms on the H100 (``core.gpu_cost``: data-sheet rates,
 not times taken on a card).
+
+The process is the rank whose model coordinate is the last (rank m - 1 of
+the row-major mesh: data, and pod, coordinates 0): where the heads do not
+divide the model axis, attention splits its queries by sequence and the
+causal mask leaves the last block of queries the most keys, so that rank
+is the busiest; where they divide, every model rank does the same work.
+The record says so (``rank``).
 
 The dry-run is a trace, not a run on any device: it builds no kernel,
 allocates no device memory and never starts the CUDA runtime (it checks
@@ -46,6 +53,8 @@ log = obs.get_logger("dryrun")
 
 #: where the dry-run's fake tensors lie (see the module docstring)
 FAKE_DEVICE = "cpu"
+#: the production mesh's model axis (``launch.mesh.make_production_mesh``)
+MODEL_AXIS = 16
 
 
 def _nbytes(tensors) -> int:
@@ -69,10 +78,10 @@ def _mesh(multi_pod: bool, shape=None):
     from repro_torch.distributed import collectives as col
     from repro_torch.launch.mesh import init_fake_world, make_production_mesh
     if shape is None:
-        init_fake_world(512 if multi_pod else 256)
+        init_fake_world(512 if multi_pod else 256, rank=MODEL_AXIS - 1)
         mesh = make_production_mesh(multi_pod=multi_pod, device=FAKE_DEVICE)
     else:
-        init_fake_world(math.prod(shape))
+        init_fake_world(math.prod(shape), rank=shape[-1] - 1)
         mesh = init_device_mesh(FAKE_DEVICE, tuple(shape),
                                 mesh_dim_names=("data", "model"))
     col.label_mesh(mesh)
@@ -88,6 +97,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
     ``shape``'s) size a cell down for tests.  A process traces one cell:
     its fake world is the process's one process group."""
     import torch
+    import torch.distributed as dist
     from torch._subclasses.fake_tensor import FakeTensorMode
 
     from repro_torch.configs import get_config
@@ -150,13 +160,19 @@ def run_cell(arch: str, shape: str, multi_pod: bool = False,
         raise RuntimeError("the dry-run started the CUDA runtime")
     counts = counter.counts
     chips = math.prod(dev_mesh.shape)
-    terms = gpu_cost.terms_from_counts(counts.flops, counts.bytes,
-                                       counts.collective_by_axis(), chips)
+    terms = gpu_cost.terms_from_counts(
+        counts.flops, counts.bytes, counts.collective_by_axis(), chips,
+        dict(zip(dev_mesh.mesh_dim_names, dev_mesh.shape)))
     return {
         "arch": arch, "shape": shape,
         "mesh": "x".join(str(s) for s in dev_mesh.shape),
+        "cell": {"kind": cell.kind, "global_batch": B, "seq_len": T},
         "layout_mode": layout_mode, "accum": accum,
         "device": f"fake {FAKE_DEVICE} tensors, no card",
+        "rank": {"global": dist.get_rank(),
+                 "model": dev_mesh.get_local_rank("model"),
+                 "why": "the last model rank: the busiest under the causal "
+                        "sequence split"},
         "trace_s": round(trace_s, 1), "chips": chips,
         "per_device": {"argument_bytes": args, "output_bytes": outs,
                        "peak_live_bytes": counts.peak_live_bytes},

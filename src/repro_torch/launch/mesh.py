@@ -11,7 +11,8 @@ Meshes are ``DeviceMesh``es with dims ``("data", "model")`` or ``("pod",
 "data", "model")``, as in ``repro``.  ``init_fake_world`` is the
 counterpart of ``repro``'s 512 placeholder host devices: this process
 joins a world of 256 or 512 ranks on PyTorch's ``fake`` process-group
-backend as rank 0, whose collectives return at once and move nothing, so
+backend as one of its ranks, whose collectives return at once and move
+nothing, so
 ``make_production_mesh(device="cpu")`` builds the production mesh on it
 and a step traced on fake tensors (``repro_torch.launch.dryrun``) sees
 its shapes without a card or a peer.  Importing this module starts
@@ -62,12 +63,12 @@ def make_local_mesh(model_axis: int = 1, device: str | torch.device = "cuda"
                             mesh_dim_names=("data", "model"))
 
 
-def init_fake_world(world: int) -> None:
-    """Join a world of ``world`` ranks on the ``fake`` backend as rank 0
+def init_fake_world(world: int, rank: int = 0) -> None:
+    """Join a world of ``world`` ranks on the ``fake`` backend as ``rank``
     (no peer, no device: every collective returns at once)."""
     # importing the module registers the backend
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
 
 

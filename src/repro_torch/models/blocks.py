@@ -18,8 +18,12 @@ tensor-parallel over heads: ``wq`` is split by heads and the packed
 ``wkv`` by KV head (placed with ``sharding.kv_order``, so each rank's
 block is its K heads then its V heads), ``wo`` is row-parallel; the MLP's
 ``wu``/``wg`` are column-parallel and ``wd`` row-parallel.  Where the
-heads do not divide the model axis, attention runs whole on every rank on
-weights gathered for the call.
+heads do not divide the model axis, training and prefill attention split
+their queries by sequence over the model ranks (``_seq_split``: weights
+gathered whole, K/V all-gathered along T), and decode keeps every head
+in a cache split by sequence, each rank attending over its block and the
+ranks merging by log-sum-exp (``attn_decode``, ``_decode_attend``); a T
+the model axis does not divide runs attention whole on every rank.
 """
 from __future__ import annotations
 
@@ -59,11 +63,13 @@ def _qkv(cfg: ArchConfig, p, x: torch.Tensor,
          kv_src: Optional[torch.Tensor] = None, tp: TensorParallel = NO_TP
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """q, k, v of this rank's heads; under a sequence-sharded stream over
-    the whole sequence."""
+    the whole sequence.  ``kv_src`` (cross-attention's memory) is whole on
+    every rank, and its normed rows feed this rank's heads (``local``)."""
     (H, Hkv), dh = tp.heads(cfg), cfg.head_dim
     h = tp.enter(tp.norm(cfg.norm, x, p["norm"]))
     q = dense(h, p["wq"]).reshape(*h.shape[:-1], H, dh)
-    src = apply_norm(cfg.norm, kv_src, p["norm"]) if kv_src is not None else h
+    src = h if kv_src is None else \
+        tp.local(apply_norm(cfg.norm, kv_src, p["norm"]))
     kv = dense(src, p["wkv"]).reshape(*src.shape[:-1], 2 * Hkv, dh)
     k, v = kv[..., :Hkv, :], kv[..., Hkv:, :]
     return q, k, v
@@ -77,13 +83,74 @@ def _gathered(cfg: ArchConfig, p, tp: TensorParallel) -> dict:
             "wo": tp.full(p["wo"], 0, H * dh)}
 
 
+def _whole(cfg: ArchConfig, p, tp: TensorParallel) -> dict:
+    """The block's weights whole for this rank's block of a sequence
+    split, each gradient a partial sum over the rank's queries
+    (``TensorParallel.whole``; the norm's through ``local``)."""
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    norm = {n: tp.local(w) for n, w in p["norm"].named_parameters()}
+    return {"norm": norm, "wq": tp.whole(p["wq"], 1, H * dh),
+            "wkv": tp.whole(p["wkv"], 1, 2 * Hkv * dh),
+            "wo": tp.whole(p["wo"], 0, H * dh)}
+
+
+def _seq_split(cfg: ArchConfig, p, x: torch.Tensor, tp: TensorParallel,
+               causal: bool, use_rope: bool,
+               positions: Optional[torch.Tensor] = None,
+               memory: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Attention with its queries split by sequence over the model group,
+    for heads that do not divide it: rank r takes the stream's rows [r T/m,
+    (r+1) T/m) (the sequence-sharded stream's own, or its slice of the
+    replicated one), computes their q, k and v on weights gathered whole,
+    all-gathers k and v along T (GQA's are G times smaller than q) and
+    attends its queries over the keys [0, (r+1) T/m) (all of them where
+    not ``causal``); the rows go back to the stream's layout.  With
+    ``memory`` (cross-attention) k and v are the whole memory's, which
+    every rank holds.  Returns (the residual delta in the stream's layout,
+    (k, v) over the whole sequence)."""
+    from repro_torch.distributed import collectives as col
+    H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    xl = x if tp.seq else col.split(x, 1, tp.group)
+    B, Tl = xl.shape[:2]
+    lo = tp.rank * Tl
+    w = _whole(cfg, p, tp)
+    h = apply_norm(cfg.norm, xl, w["norm"])
+    q = dense(h, w["wq"]).reshape(B, Tl, H, dh)
+    if memory is not None:
+        src = tp.local(apply_norm(cfg.norm, memory, p["norm"]))
+        kv = dense(src, w["wkv"]).reshape(B, -1, 2 * Hkv, dh)
+    else:
+        kv = dense(h, w["wkv"]).reshape(B, Tl, 2 * Hkv, dh)
+        if use_rope:
+            pos = lo + torch.arange(Tl, device=x.device) \
+                if positions is None else positions[..., lo:lo + Tl]
+            pos = torch.broadcast_to(pos, (B, Tl))
+            q = apply_rope(q, pos, cfg.rope_theta)
+            kv = torch.cat([apply_rope(kv[:, :, :Hkv], pos, cfg.rope_theta),
+                            kv[:, :, Hkv:]], dim=2)
+        kv = col.all_gather(kv, 1, tp.group)
+    end = lo + Tl if causal else kv.shape[1]
+    o = chunked_attention(q, kv[:, :end, :Hkv], kv[:, :end, Hkv:],
+                          causal=causal, q_offset=lo)
+    y = dense(o.reshape(B, Tl, -1), w["wo"])
+    if not tp.seq:
+        y = col.all_gather(y, 1, tp.group, replicated=True)
+    return y, (kv[:, :, :Hkv], kv[:, :, Hkv:])
+
+
 def attn_train(cfg: ArchConfig, p, x: torch.Tensor,
                positions: Optional[torch.Tensor] = None,
                causal: bool = True, use_rope: bool = True,
                tp: TensorParallel = NO_TP) -> torch.Tensor:
     """x: (B, T, D) -> (B, T, D) residual delta, both in the stream's
-    layout under a mesh."""
+    layout under a mesh: heads split over the model group where they
+    divide it, else queries split by sequence (``_seq_split``) where T
+    divides it, else attention whole on every rank."""
     if tp.on and not tp.attn_sharded:
+        T = x.shape[1] * (tp.size if tp.seq else 1)
+        if tp.seq_split(T):
+            return _seq_split(cfg, p, x, tp, causal, use_rope, positions)[0]
         return tp.from_replicated(attn_train(
             cfg, _gathered(cfg, p, tp), tp.to_replicated(x), positions,
             causal, use_rope))
@@ -100,20 +167,41 @@ def attn_train(cfg: ArchConfig, p, x: torch.Tensor,
 
 
 def cross_attn_train(cfg: ArchConfig, p, x: torch.Tensor,
-                     memory: torch.Tensor) -> torch.Tensor:
+                     memory: torch.Tensor, tp: TensorParallel = NO_TP
+                     ) -> torch.Tensor:
     """x: (B, T, D) attends over ``memory`` (B, Tenc, D), no mask, no
-    RoPE; the block's norm is applied to both."""
-    B, T, D = x.shape
-    q, k, v = _qkv(cfg, p, x, kv_src=memory)
+    RoPE; the block's norm is applied to both.  Under a mesh ``x`` is in
+    the stream's layout and ``memory`` whole on every rank (the encoder's
+    output, replicated): heads split where they divide the model group,
+    else the queries split by sequence over it, else the block whole on
+    every rank."""
+    if tp.on and not tp.attn_sharded:
+        T = x.shape[1] * (tp.size if tp.seq else 1)
+        if tp.seq_split(T):
+            return _seq_split(cfg, p, x, tp, False, False,
+                              memory=memory)[0]
+        return tp.from_replicated(cross_attn_train(
+            cfg, _gathered(cfg, p, tp), tp.to_replicated(x), memory))
+    q, k, v = _qkv(cfg, p, x, kv_src=memory, tp=tp)
+    B, T = q.shape[:2]
     o = chunked_attention(q, k, v, causal=False)
-    return dense(o.reshape(B, T, -1), p["wo"])
+    return tp.exit(dense(o.reshape(B, T, -1), p["wo"]))
 
 
 def attn_prefill(cfg: ArchConfig, p, x: torch.Tensor, use_rope: bool = True,
                  tp: TensorParallel = NO_TP
                  ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Returns (residual delta, (k, v)) for the prompt; k/v (B, T, Hkv, dh)
-    of this rank's KV heads."""
+    of this rank's KV heads, or of every head where they do not divide the
+    model group (the caller keeps its block of the sequence:
+    ``write_prompt_kv``)."""
+    if tp.on and not tp.attn_sharded:
+        T = x.shape[1] * (tp.size if tp.seq else 1)
+        if tp.seq_split(T):
+            return _seq_split(cfg, p, x, tp, True, use_rope)
+        y, kv = attn_prefill(cfg, _gathered(cfg, p, tp), tp.to_replicated(x),
+                             use_rope)
+        return tp.from_replicated(y), kv
     B, T, D = x.shape
     q, k, v = _qkv(cfg, p, x, tp=tp)
     if use_rope:
@@ -124,9 +212,85 @@ def attn_prefill(cfg: ArchConfig, p, x: torch.Tensor, use_rope: bool = True,
     return tp.exit(dense(o.reshape(B, T, -1), p["wo"])), (k, v)
 
 
+def write_prompt_kv(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k: torch.Tensor, v: torch.Tensor, tp: TensorParallel,
+                    seq_split: bool) -> None:
+    """Store a prompt's k/v (B, T, Hkv, dh) in a rank's caches (B, S,
+    Hkv, dh): positions [0, T) where the cache is whole along S, else the
+    rank's block [r S, (r+1) S) of them (``seq_split``)."""
+    lo = tp.rank * k_cache.shape[1] if seq_split else 0
+    n = max(0, min(k.shape[1] - lo, k_cache.shape[1]))
+    if n:
+        k_cache[:, :n] = k[:, lo:lo + n]
+        v_cache[:, :n] = v[:, lo:lo + n]
+
+
+def _gather_cols(tp: TensorParallel, h: torch.Tensor, weights, widths
+                 ) -> list:
+    """``h @ w`` for each weight, gathered whole along its columns over the
+    model group where the weight is split by column there: one
+    all-gather of the products packed side by side (activations, a few
+    rows, move in place of the weights)."""
+    from repro_torch.distributed import collectives as col
+    outs = [dense(h, w) for w in weights]
+    split = [i for i, (o, n) in enumerate(zip(outs, widths))
+             if o.shape[-1] != n]
+    if split:
+        packed = col.all_gather(torch.cat([outs[i] for i in split], -1)
+                                .unsqueeze(-2), h.dim() - 1, tp.group,
+                                replicated=True)
+        lo = 0
+        for i in split:
+            n = outs[i].shape[-1]
+            outs[i] = packed[..., lo:lo + n].flatten(-2)
+            lo += n
+    return outs
+
+
+def seq_block_partial(q: torch.Tensor, k_block: torch.Tensor,
+                      v_block: torch.Tensor, lengths: torch.Tensor,
+                      rank: int):
+    """Rank ``rank``'s share of one token's attention over a cache split
+    by sequence into blocks of ``S = k_block.shape[1]`` positions: its
+    block holds positions [rank S, (rank+1) S), so a row of ``lengths``
+    valid positions has ``clamp(lengths - rank S, 0, S)`` of them here
+    (0 where the block lies wholly past the row).  ``(o, m, l)`` of
+    ``ops.gqa_decode_partial``, for a log-sum-exp merge over the blocks."""
+    S = k_block.shape[1]
+    return ops.gqa_decode_partial(q, k_block, v_block,
+                                  torch.clamp(lengths - rank * S, 0, S))
+
+
+def _decode_attend(cfg: ArchConfig, p, tp: TensorParallel, q: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor,
+                   lengths: torch.Tensor, seq_split: bool) -> torch.Tensor:
+    """One token's attention over a rank's caches and ``wo``, for heads
+    that do not divide the model group: ``q`` (B, H, dh) of every head;
+    the caches hold every head, over the rank's block of the sequence
+    (``seq_split``: ``ops.gqa_decode_partial`` at the rows' local lengths
+    ``clamp(lengths - r S, 0, S)``, merged by log-sum-exp over the group)
+    or over all of it (``ops.gqa_decode``).  The output's row block of this
+    rank goes through the row-parallel ``wo`` and the group sums it (a
+    ``wo`` the placement keeps whole is applied whole)."""
+    from repro_torch.distributed import collectives as col
+    B, H, dh = q.shape
+    if seq_split:
+        o, m, l = seq_block_partial(q, k_cache, v_cache, lengths, tp.rank)
+        o = col.merge_partials(o, m, l, tp.group).to(q.dtype)
+    else:
+        o = ops.gqa_decode(q, k_cache, v_cache, lengths)
+    o = o.reshape(B, H * dh)
+    wo = p["wo"]
+    if wo.shape[0] == H * dh:
+        return dense(o, wo)
+    n = wo.shape[0]
+    return tp.exit(dense(o[:, tp.rank * n:(tp.rank + 1) * n], wo))
+
+
 def attn_decode(cfg: ArchConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
                 v_cache: torch.Tensor, length: torch.Tensor,
-                use_rope: bool = True, tp: TensorParallel = NO_TP
+                use_rope: bool = True, tp: TensorParallel = NO_TP,
+                seq_split: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One token step.  x: (B, D); caches: (B, S, Hkv, dh); length: (B,).
 
@@ -134,9 +298,35 @@ def attn_decode(cfg: ArchConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     version scatters into new caches) and returns (residual delta (B, D),
     k_cache, v_cache).  The new token attends over length+1 entries through
     ``ops.gqa_decode`` (the CUDA kernel on the card); under a mesh on this
-    rank's heads and its (B, S, Hkv/m, dh) caches.
+    rank's heads and its (B, S, Hkv/m, dh) caches.  Where the KV heads do
+    not divide the model group, the caches hold every head and the rank's
+    block of the sequence (``seq_split``, as ``cache_shardings`` places
+    them) or all of it: each rank computes its columns of q, k and v, the
+    group gathers those few rows, the rank writes the new K/V where it
+    holds position ``length`` and attends over its block
+    (``_decode_attend``).
     """
     B, D = x.shape
+    if tp.on and not tp.attn_sharded:
+        H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        h = apply_norm(cfg.norm, x, p["norm"])
+        q, kv = _gather_cols(tp, h, (p["wq"], p["wkv"]),
+                             (H * dh, 2 * Hkv * dh))
+        q, kv = q.reshape(B, 1, H, dh), kv.reshape(B, 1, 2 * Hkv, dh)
+        k, v = kv[:, :, :Hkv], kv[:, :, Hkv:]
+        if use_rope:
+            q = apply_rope(q, length[:, None], cfg.rope_theta)
+            k = apply_rope(k, length[:, None], cfg.rope_theta)
+        S = k_cache.shape[1]
+        pos = length.long() - (tp.rank * S if seq_split else 0)
+        own = ((pos >= 0) & (pos < S))[:, None, None]
+        at = torch.clamp(pos, 0, S - 1)
+        rows = torch.arange(B, device=x.device)
+        k_cache[rows, at] = torch.where(own, k[:, 0], k_cache[rows, at])
+        v_cache[rows, at] = torch.where(own, v[:, 0], v_cache[rows, at])
+        y = _decode_attend(cfg, p, tp, q[:, 0].contiguous(), k_cache,
+                           v_cache, length + 1, seq_split)
+        return y, k_cache, v_cache
     q, k, v = _qkv(cfg, p, x[:, None, :], tp=tp)
     if use_rope:
         q = apply_rope(q, length[:, None], cfg.rope_theta)
@@ -147,6 +337,28 @@ def attn_decode(cfg: ArchConfig, p, x: torch.Tensor, k_cache: torch.Tensor,
     v_cache[rows, pos] = v[:, 0]
     o = ops.gqa_decode(q[:, 0].contiguous(), k_cache, v_cache, length + 1)
     return tp.exit(dense(o.reshape(B, -1), p["wo"])), k_cache, v_cache
+
+
+def cross_attn_decode(cfg: ArchConfig, p, x: torch.Tensor,
+                      ck: torch.Tensor, cv: torch.Tensor,
+                      lengths: torch.Tensor, tp: TensorParallel = NO_TP,
+                      seq_split: bool = False) -> torch.Tensor:
+    """One token's cross-attention over the memory's cached K/V (B, Tenc,
+    Hkv, dh) at ``lengths`` (every row's Tenc): the residual delta (B, D).
+    Under a mesh on this rank's heads where they divide the model group,
+    else through ``_decode_attend`` on the cache as ``cache_shardings``
+    places it (its sequence block, ``seq_split``, or all of it)."""
+    B = x.shape[0]
+    h = apply_norm(cfg.norm, x, p["norm"])
+    if tp.on and not tp.attn_sharded:
+        H, dh = cfg.n_heads, cfg.head_dim
+        q, = _gather_cols(tp, h, (p["wq"],), (H * dh,))
+        return _decode_attend(cfg, p, tp, q.reshape(B, H, dh), ck, cv,
+                              lengths, seq_split)
+    (H, _), dh = tp.heads(cfg), cfg.head_dim
+    q = dense(tp.enter(h), p["wq"]).reshape(B, H, dh)
+    o = ops.gqa_decode(q, ck, cv, lengths)
+    return tp.exit(dense(o.reshape(B, -1), p["wo"]))
 
 
 # ------------------------------------------------------------------------- MLP

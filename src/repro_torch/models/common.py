@@ -105,48 +105,88 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 
 # ----------------------------------------------------- chunked causal attention
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      chunk: int = 1024, causal: bool = True) -> torch.Tensor:
+                      chunk: int = 1024, causal: bool = True,
+                      q_offset: Optional[int] = None) -> torch.Tensor:
     """Memory-efficient (flash-style) attention in plain torch.
 
-    q: (B, Tq, H, dh); k/v: (B, Tk, Hkv, dh) with H = G * Hkv.  A loop over
-    KV chunks with an online softmax: peak memory O(Tq * chunk) instead of
-    O(Tq * Tk).  Queries sit at the last Tq of the Tk positions.
+    q: (B, Tq, H, dh); k/v: (B, Tk, Hkv, dh) with H = G * Hkv.  The
+    queries in blocks of ``chunk``, each over the KV chunks with an online
+    softmax: peak memory O(chunk^2) instead of O(Tq * Tk).  The queries sit
+    at positions ``q_offset`` .. ``q_offset + Tq - 1`` of the keys' (the
+    last Tq by default; a rank's block of a sequence split passes its
+    first position).  Under ``causal`` a query block skips the KV chunks
+    that lie wholly past its last query: such a chunk would add ``exp(NEG_INF
+    - m) = 0`` to every sum, so the skip changes no bit.
     """
     B, Tq, H, dh = q.shape
     _, Tk, Hkv, _ = k.shape
     G = H // Hkv
     scale = 1.0 / (dh ** 0.5)
+    q0 = Tk - Tq if q_offset is None else q_offset
     chunk = min(chunk, Tk)
     while Tk % chunk:   # largest chunk <= requested that tiles Tk
         chunk -= 1
     n_chunks = Tk // chunk
+    qc = min(chunk, Tq)
+    while Tq % qc:
+        qc -= 1
 
     qf = q.float().reshape(B, Tq, Hkv, G, dh)
     kf = k.float().reshape(B, n_chunks, chunk, Hkv, dh)
     vf = v.float().reshape(B, n_chunks, chunk, Hkv, dh)
-    q_pos = (Tk - Tq) + torch.arange(Tq, device=q.device)
-
-    m = torch.full((B, Hkv, G, Tq), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, Hkv, G, Tq), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, Hkv, G, Tq, dh), dtype=torch.float32,
-                      device=q.device)
-    for ci in range(n_chunks):
-        kc, vc = kf[:, ci], vf[:, ci]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qf, kc) * scale
-        if causal:
-            k_pos = ci * chunk + torch.arange(chunk, device=q.device)
-            mask = q_pos[:, None] >= k_pos[None, :]         # (Tq, chunk)
-            s = torch.where(mask[None, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.exp(s - m_new[..., None])
-        alpha = torch.exp(m - m_new)
-        l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p,
-                                                    vc)
-        m = m_new
-    out = acc / torch.clamp(l, min=1e-30)[..., None]         # (B,Hkv,G,Tq,dh)
+    outs = []
+    for lo in range(0, Tq, qc):
+        q_pos = q0 + lo + torch.arange(qc, device=q.device)
+        n_kv = min(n_chunks, (q0 + lo + qc - 1) // chunk + 1) if causal \
+            else n_chunks
+        m = torch.full((B, Hkv, G, qc), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, G, qc), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((B, Hkv, G, qc, dh), dtype=torch.float32,
+                          device=q.device)
+        for ci in range(n_kv):
+            kc, vc = kf[:, ci], vf[:, ci]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, lo:lo + qc], kc) \
+                * scale
+            if causal:
+                k_pos = ci * chunk + torch.arange(chunk, device=q.device)
+                mask = q_pos[:, None] >= k_pos[None, :]     # (qc, chunk)
+                s = torch.where(mask[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd",
+                                                        p, vc)
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    out = torch.cat(outs, dim=3) if len(outs) > 1 else outs[0]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Tq, H, dh).to(q.dtype)
+
+
+def lse_weights(m: torch.Tensor, l: torch.Tensor, m_max: torch.Tensor
+                ) -> torch.Tensor:
+    """Each split's weight in a log-sum-exp merge, ``l exp(m - M)``, for
+    splits' row statistics ``(m, l)`` and ``M`` their max over the splits:
+    0 for an empty split (``m = -inf``, ``l = 0``), and no NaN where every
+    split is empty (``M = -inf``)."""
+    return l * torch.exp(m - torch.where(torch.isfinite(m_max), m_max, 0.0))
+
+
+def merge_partials(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor
+                   ) -> torch.Tensor:
+    """Attention outputs of splits of the keys merged into the output over
+    all of them: ``o`` (n, ..., D) each split's normalised output, ``m``
+    and ``l`` (n, ...) its row statistics (``ops.gqa_decode_partial``'s)
+    -> (..., D) f32, ``sum_s w_s o_s / sum_s w_s`` with ``w_s = l_s exp(m_s
+    - max_s m_s)``.  A row whose every split is empty gives 0.  The
+    collective form over a model group is
+    ``distributed.collectives.merge_partials``."""
+    w = lse_weights(m, l, m.amax(dim=0))
+    den = w.sum(dim=0)
+    num = (w[..., None] * o.float()).sum(dim=0)
+    return num / torch.where(den > 0, den, 1.0)[..., None]
 
 
 def dense(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -182,9 +222,10 @@ class TensorParallel:
         #: heads split over the group; else attention runs replicated on
         #: gathered weights
         self.attn_sharded = attn_sharded
-        #: the leaves (``embed``, ``mu``) whose placement splits them over
-        #: the group, read from the placement table (on a group of one
-        #: too, so their collectives are called there as well)
+        #: the leaves (``embed``, ``mu``, whisper's ``pos_embed``) whose
+        #: placement splits them over the group, read from the placement
+        #: table (on a group of one too, so their collectives are called
+        #: there as well)
         self.split = split
 
     def with_seq(self, seq: bool) -> "TensorParallel":
@@ -253,6 +294,25 @@ class TensorParallel:
         if not self.on or w.shape[dim] == size:
             return w
         return col.all_gather(w, dim, self.group, replicated=True)
+
+    def whole(self, w: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+        """A weight gathered whole for this rank's share of the work (its
+        block of a sequence split): each rank's gradient is a partial sum,
+        so a split weight's gather reduce-scatters it back and a weight the
+        group holds whole goes through ``local``.  ``full`` is for a
+        computation every rank repeats."""
+        from repro_torch.distributed import collectives as col
+        if not self.on:
+            return w
+        if w.shape[dim] == size:
+            return self.local(w)
+        return col.all_gather(w, dim, self.group)
+
+    def seq_split(self, T: int) -> bool:
+        """Whether attention over ``T`` positions splits its queries by
+        sequence over the group: where the heads do not divide it and T
+        does."""
+        return self.on and not self.attn_sharded and T % self.size == 0
 
 
 #: the one-device context

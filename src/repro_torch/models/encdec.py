@@ -16,6 +16,18 @@ cross-attention K/V of the encoder's memory once, and ``decode_step``
 writes each layer's new self-attention K/V in place.  Both attentions of
 a decode step go through ``ops.gqa_decode``, the cross one over all
 ``enc_frames`` positions of every row.
+
+Under a mesh (``stepfn.place_model``) both stacks take the dense family's
+tensor parallelism (``blocks``): the encoder's self-attention and MLP, the
+decoder's self- and cross-attention and MLP, the vocab-parallel embedding
+and tied head.  The encoder's output, the memory, is whole on every rank
+of the model group.  Where the heads do not divide the model axis the
+attentions split their queries by sequence, and in decode the self cache
+is split by sequence over the group (``blocks.attn_decode``); the cross
+cache is split so too where ``enc_frames`` divides the axis, and where it
+does not (1500 frames on 16 ranks) ``cache_shardings`` keeps it whole on
+every rank, as ``repro``'s ``_guard`` does, and every rank attends over
+all of it (``blocks.cross_attn_decode``).
 """
 from __future__ import annotations
 
@@ -27,12 +39,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.kernels import ops
 
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
-                     cross_attn_train, dtype_of, mlp_apply, mlp_specs)
-from .common import ParamModule, Spec, SpecTree, apply_norm, dense, norm_spec
-from .lm import LMModel, check_family, chunked_ce_loss, flat_specs
+                     cross_attn_decode, cross_attn_train, dtype_of,
+                     mlp_apply, mlp_specs, write_prompt_kv)
+from .common import (NO_TP, ParamModule, Spec, SpecTree, TensorParallel,
+                     apply_norm, dense, norm_spec)
+from .lm import LMModel, check_family, flat_specs
 
 #: rows of the decoder's learned position table (``repro``'s constant)
 MAX_POSITIONS = 32768
@@ -99,50 +112,59 @@ class EncDecModel(LMModel):
         return out
 
     # ---------------------------------------------------------------- forward
-    def _enc_layer(self, x: torch.Tensor, layer: ParamModule
-                   ) -> torch.Tensor:
+    def _enc_layer(self, x: torch.Tensor, layer: ParamModule,
+                   tp: TensorParallel = NO_TP) -> torch.Tensor:
         x = x + attn_train(self.cfg, layer["attn"], x, causal=False,
-                           use_rope=False)
-        return x + mlp_apply(self.cfg, layer["ffn"], x)
+                           use_rope=False, tp=tp)
+        return x + mlp_apply(self.cfg, layer["ffn"], x, tp)
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, Tenc, D) stub embeddings -> encoder memory; each
         layer under ``torch.utils.checkpoint`` where autograd records (the
         JAX encoder scan is always checkpointed).  Frames are cast to the
         model's dtype (``repro`` adds f32 frames to bf16 positions and
-        runs a bf16 model's encoder in f32)."""
+        runs a bf16 model's encoder in f32).  Under a mesh the stream
+        between the layers follows the layout hook at Tenc, and the memory
+        comes out whole on every rank."""
+        tp = self._tp_for(frames.shape[1])
         x = frames.to(self.top.enc_pos.dtype) \
             + self.top.enc_pos[None, :frames.shape[1]]
+        x = tp.from_replicated(x)
         for layer in self.enc_layers:
             if torch.is_grad_enabled():
-                x = checkpoint(self._enc_layer, x, layer,
+                x = checkpoint(self._enc_layer, x, layer, tp,
                                use_reentrant=False)
             else:
-                x = self._enc_layer(x, layer)
-        return apply_norm(self.cfg.norm, x, self.top.enc_norm)
+                x = self._enc_layer(x, layer, tp)
+        return tp.to_replicated(tp.norm(self.cfg.norm, x, self.top.enc_norm))
 
-    def _dec_embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        T = tokens.shape[1]
-        return self._embed(tokens) + self.top.pos_embed[None, :T]
+    def _dec_embed(self, tokens: torch.Tensor, tp: TensorParallel = NO_TP
+                   ) -> torch.Tensor:
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        return self._embed(tokens, tp) \
+            + self._lookup("pos_embed", pos.expand(tokens.shape), tp)
 
     def _dec_layer(self, x: torch.Tensor, memory: torch.Tensor,
-                   layer: ParamModule) -> torch.Tensor:
-        x = x + attn_train(self.cfg, layer["self"], x, use_rope=False)
-        x = x + cross_attn_train(self.cfg, layer["cross"], x, memory)
-        return x + mlp_apply(self.cfg, layer["ffn"], x)
+                   layer: ParamModule, tp: TensorParallel = NO_TP
+                   ) -> torch.Tensor:
+        x = x + attn_train(self.cfg, layer["self"], x, use_rope=False, tp=tp)
+        x = x + cross_attn_train(self.cfg, layer["cross"], x, memory, tp)
+        return x + mlp_apply(self.cfg, layer["ffn"], x, tp)
 
     def _decoder_hidden(self, tokens: torch.Tensor, memory: torch.Tensor,
                         remat: bool = True) -> torch.Tensor:
-        """tokens: (B, T) over ``memory`` -> final hidden (B, T, D)."""
-        x = self._dec_embed(tokens)
+        """tokens: (B, T) over ``memory`` -> final hidden (B, T, D) (under a
+        mesh in the stream's layout of a T-position call)."""
+        tp = self._tp_for(tokens.shape[1])
+        x = self._dec_embed(tokens, tp)
         remat = remat and torch.is_grad_enabled()
         for layer in self.dec_layers:
             if remat:
-                x = checkpoint(self._dec_layer, x, memory, layer,
+                x = checkpoint(self._dec_layer, x, memory, layer, tp,
                                use_reentrant=False)
             else:
-                x = self._dec_layer(x, memory, layer)
-        return apply_norm(self.cfg.norm, x, self.top.final_norm)
+                x = self._dec_layer(x, memory, layer, tp)
+        return tp.norm(self.cfg.norm, x, self.top.final_norm)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         return dense(hidden, self.top.embed.T)     # whisper ties its head
@@ -153,7 +175,7 @@ class EncDecModel(LMModel):
         tokens = batch["tokens"]
         memory = self.encode(batch["frames"])
         hidden = self._decoder_hidden(tokens[:, :-1], memory)
-        return chunked_ce_loss(self, hidden, tokens[:, 1:])
+        return self._hidden_loss(hidden, tokens[:, 1:])
 
     # ---------------------------------------------------------------- serving
     def cache_specs(self, batch: int, max_seq: int) -> SpecTree:
@@ -177,29 +199,44 @@ class EncDecModel(LMModel):
         memory through each cross block's own norm, as ``repro`` does."""
         cfg = self.cfg
         B, T = tokens.shape
-        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
         if frames is None:
             frames = torch.zeros((B, cfg.enc_frames, cfg.d_model),
                                  dtype=dtype_of(cfg), device=self.device)
+        tp = self.tp.with_seq(False) if self.mesh is not None else NO_TP
         memory = self.encode(frames)
-        x = self._dec_embed(tokens)
+        x = self._dec_embed(tokens, tp)
         cache = self.init_cache(B, max_seq)
         lc = cache["layers"]
+        split = self.kv_split
         for i, layer in enumerate(self.dec_layers):
             delta, (k, v) = attn_prefill(cfg, layer["self"], x,
-                                         use_rope=False)
+                                         use_rope=False, tp=tp)
             x = x + delta
-            x = x + cross_attn_train(cfg, layer["cross"], x, memory)
-            x = x + mlp_apply(cfg, layer["ffn"], x)
-            lc["k"][i, :, :T] = k
-            lc["v"][i, :, :T] = v
-            h = apply_norm(cfg.norm, memory, layer["cross"]["norm"])
-            ckv = dense(h, layer["cross"]["wkv"]).reshape(B, -1, 2 * Hkv, dh)
-            lc["ck"][i] = ckv[..., :Hkv, :]
-            lc["cv"][i] = ckv[..., Hkv:, :]
+            x = x + cross_attn_train(cfg, layer["cross"], x, memory, tp)
+            x = x + mlp_apply(cfg, layer["ffn"], x, tp)
+            write_prompt_kv(lc["k"][i], lc["v"][i], k, v, tp,
+                            split.get("k", False))
+            ck, cv = self._cross_kv(layer["cross"], memory, tp)
+            write_prompt_kv(lc["ck"][i], lc["cv"][i], ck, cv, tp,
+                            split.get("ck", False))
         x = apply_norm(cfg.norm, x, self.top.final_norm)
         cache["length"].fill_(T)
-        return cache, self.logits(x[:, -1])
+        return cache, self._logits_out(x[:, -1], tp)
+
+    def _cross_kv(self, p, memory: torch.Tensor, tp: TensorParallel
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The cross block's K/V of the memory (B, Tenc, Hkv, dh): this
+        rank's KV heads, or every head (on ``wkv`` gathered whole) where
+        the heads do not divide the model axis."""
+        cfg = self.cfg
+        Hkv, dh = cfg.n_kv_heads, cfg.head_dim
+        wkv = p["wkv"]
+        if tp.on and not tp.attn_sharded:
+            wkv = tp.full(wkv, 1, 2 * Hkv * dh)
+        h = apply_norm(cfg.norm, memory, p["norm"])
+        ckv = dense(h, wkv).reshape(*memory.shape[:2], -1, dh)
+        n = ckv.shape[2] // 2
+        return ckv[..., :n, :], ckv[..., n:, :]
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
                     ) -> Tuple[Dict, torch.Tensor]:
@@ -210,23 +247,24 @@ class EncDecModel(LMModel):
         cross-attention over the ``enc_frames`` positions of the memory."""
         cfg = self.cfg
         B = tokens.shape[0]
+        tp = self.tp.with_seq(False) if self.mesh is not None else NO_TP
         length = self._rows(cache["length"])
         lc = cache["layers"]
+        split = self.kv_split
         pos = torch.clamp(length, 0, MAX_POSITIONS - 1).long()
-        x = self._embed(tokens) + self.top.pos_embed[pos]
+        x = self._embed(tokens, tp) + self._lookup("pos_embed", pos, tp)
         enc_len = torch.full((B,), cfg.enc_frames, dtype=torch.int32,
                              device=x.device)
         for i, layer in enumerate(self.dec_layers):
             delta, _, _ = attn_decode(cfg, layer["self"], x, lc["k"][i],
-                                      lc["v"][i], length, use_rope=False)
+                                      lc["v"][i], length, use_rope=False,
+                                      tp=tp, seq_split=split.get("k", False))
             x = x + delta
-            cross = layer["cross"]
-            h = apply_norm(cfg.norm, x, cross["norm"])
-            q = dense(h, cross["wq"]).reshape(B, cfg.n_heads, cfg.head_dim)
-            o = ops.gqa_decode(q, lc["ck"][i], lc["cv"][i], enc_len)
-            x = x + dense(o.reshape(B, -1), cross["wo"])
-            x = x + mlp_apply(cfg, layer["ffn"], x[:, None])[:, 0]
+            x = x + cross_attn_decode(cfg, layer["cross"], x, lc["ck"][i],
+                                      lc["cv"][i], enc_len, tp,
+                                      split.get("ck", False))
+            x = x + mlp_apply(cfg, layer["ffn"], x[:, None], tp)[:, 0]
         x = apply_norm(cfg.norm, x, self.top.final_norm)
-        logits = self.logits(x)
+        logits = self._logits_out(x, tp)
         cache["length"].add_(1)
         return cache, logits

@@ -52,7 +52,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
 
 from .blocks import (attn_decode, attn_prefill, attn_specs, attn_train,
-                     dtype_of, mlp_apply, mlp_specs, moe_apply, moe_specs)
+                     dtype_of, mlp_apply, mlp_specs, moe_apply, moe_specs,
+                     write_prompt_kv)
 from .common import (NO_TP, ParamModule, Spec, SpecTree, TensorParallel,
                      Whole, apply_norm, dense, norm_spec)
 from .ssm import (mamba2_cache_specs, mamba2_decode, mamba2_specs,
@@ -154,6 +155,11 @@ class LMModel(nn.Module):
     #: some parameter is split over the data axes by FSDP (set by
     #: ``place_model``): layers and the embedding are read through ``Whole``
     fsdp = False
+    #: the attention caches (by leaf name: ``k``, ``ck``, ``attn_k``)
+    #: that ``cache_shardings`` splits by sequence over the model group,
+    #: where the KV heads do not divide it (set on the instance by
+    #: ``stepfn.local_cache_specs`` each time it places a cache)
+    kv_split: Dict[str, bool] = {}
 
     def __init__(self, cfg: ArchConfig, device: str | torch.device = "cuda"):
         super().__init__()
@@ -237,13 +243,21 @@ class LMModel(nn.Module):
         """The embedding rows of ``tokens`` in ``tp``'s stream layout:
         vocab-parallel under a mesh (each rank looks up the tokens of its
         vocabulary block, zeros elsewhere, and the group sums)."""
-        e = self._top("embed")
+        return self._lookup("embed", tokens, tp)
+
+    def _lookup(self, name: str, idx: torch.Tensor,
+                tp: TensorParallel = NO_TP) -> torch.Tensor:
+        """Rows ``idx`` of the top-level table ``name`` in ``tp``'s stream
+        layout: where the placement splits the table's rows over the model
+        group (``tp.split``), each rank looks up the indices of its block,
+        zeros elsewhere, and the group sums."""
+        e = self._top(name)
         if not tp.on:
-            return e[tokens.long()]
-        if not self._vocab_sharded():
-            return tp.from_replicated(e[tokens.long()])
+            return e[idx.long()]
+        if name not in tp.split:
+            return tp.from_replicated(e[idx.long()])
         V = e.shape[0]
-        t = tokens.long() - tp.rank * V
+        t = idx.long() - tp.rank * V
         mine = (t >= 0) & (t < V)
         x = e[t.clamp(0, V - 1)] * mine[..., None].to(e.dtype)
         return tp.exit(x)
@@ -316,8 +330,13 @@ class LMModel(nn.Module):
         over this data rank's rows, on vocab-sharded logits)."""
         tokens = batch["tokens"]
         inp, tgt = tokens[:, :-1], tokens[:, 1:]
-        hidden = self.hidden_states(inp)
-        tp = self._tp_for(inp.shape[1])
+        return self._hidden_loss(self.hidden_states(inp), tgt)
+
+    def _hidden_loss(self, hidden: torch.Tensor, tgt: torch.Tensor
+                     ) -> torch.Tensor:
+        """The loss of final hidden states (in the stream's layout of a
+        ``tgt.shape[1]``-position call) against ``tgt``."""
+        tp = self._tp_for(tgt.shape[1])
         if not tp.on:
             return chunked_ce_loss(self, hidden, tgt)
         if self._vocab_sharded():
@@ -383,7 +402,8 @@ class LMModel(nn.Module):
                 c[i].copy_(new[n])
             return delta
         delta, _, _ = attn_decode(self.cfg, p, x, caches["k"][i],
-                                  caches["v"][i], length, tp=tp)
+                                  caches["v"][i], length, tp=tp,
+                                  seq_split=self.kv_split.get("k", False))
         return delta
 
     def decode_step(self, cache: Dict, tokens: torch.Tensor
@@ -426,13 +446,13 @@ class LMModel(nn.Module):
                 x = self._layer_train(x, layer, tp)
         else:
             ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+            split = self.kv_split.get("k", False)
             for i, layer in enumerate(self.layers):
                 layer = self._view(layer)
                 delta, (k, v) = attn_prefill(cfg, layer["mixer"], x, tp=tp)
                 x = x + delta
                 x = x + self._ffn(layer, x, tp)
-                ks[i, :, :T] = k
-                vs[i, :, :T] = v
+                write_prompt_kv(ks[i], vs[i], k, v, tp, split)
         x = apply_norm(cfg.norm, x, self._top("final_norm"))
         logits = self._logits_out(x[:, -1], tp)
         cache["length"].fill_(T)

@@ -338,6 +338,37 @@ def test_gqa_decode_streams_keep_their_own_workspace_on_card(cuda):
     assert ws[0][1].data_ptr() != ws[1][1].data_ptr()
 
 
+@pytest.mark.parametrize("hq,hkv,d,s", [(24, 8, 128, 1024),
+                                         (48, 8, 128, 144),
+                                         (12, 12, 64, 1500)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 5e-4),
+                                       (torch.bfloat16, 3e-2)])
+def test_gqa_decode_partial_matches_plain_on_card(cuda, hq, hkv, d, s, dtype,
+                                                  tol):
+    """The partial variant's (out, m, l) against ``ref.gqa_decode_partial``
+    at llama's, dbrx's and whisper's cross shapes, rows of length 0 (``(0,
+    -inf, 0)``), 1, one split, several splits and the whole cache among
+    them; the plain ``gqa_decode`` launch gives the same output."""
+    gen = torch.Generator().manual_seed(hq + s)
+    q = torch.randn(8, hq, d, generator=gen).to(cuda, dtype)
+    k = torch.randn(8, s, hkv, d, generator=gen).to(cuda, dtype)
+    v = torch.randn(8, s, hkv, d, generator=gen).to(cuda, dtype)
+    lens = torch.tensor([0, 1, 100, 256, 257, s // 2, s - 1, s],
+                        dtype=torch.int32, device=cuda).clamp(max=s)
+    before = gk.partial_launch_count()
+    out, m, l = ops.gqa_decode_partial(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert gk.partial_launch_count() == before + 1
+    want = ref.gqa_decode_partial(q, k, v, lens)
+    assert torch.equal(out[0].float(), torch.zeros_like(out[0].float()))
+    assert torch.all(m[0] == float("-inf")) and torch.all(l[0] == 0)
+    torch.testing.assert_close(out.float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(m[1:], want[1][1:], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l[1:], want[2][1:], rtol=1e-4, atol=1e-5)
+    assert torch.equal(ops.gqa_decode(q, k, v, lens), out)
+
+
 def test_gqa_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     q, k, v, lens = _gqa_inputs(2, 4, 2, 64, 256, torch.float32, cuda, 1)
     with pytest.raises(ValueError, match="head dim"):

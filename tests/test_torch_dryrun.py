@@ -12,11 +12,16 @@
   ``repro``'s ``memory_analysis().argument_size_in_bytes`` of its compiled
   step on 8 host devices: SMOKE llama, dbrx (train) and phi3 (decode) on
   (2, 4), SMOKE rwkv6 (train) on (4, 2) (its 2 heads do not split over a
-  model axis of 4, which the port refuses).
+  model axis of 4, which the port refuses for rwkv6).
 * The matmul FLOPs of SMOKE llama's train and decode steps on one device
   are within 10% of ``repro.core.hlo_cost.analyze_hlo``'s.
-* The CLI writes a cell's record, and a cell that needs item 10b raises
-  naming it.
+* The CLI writes a cell's record (llama3.2-3b ``decode_32k``, whose cache
+  is split by sequence: under 100 MB of collectives a device a step, on
+  the last model rank), and a cell that needs item 10b (b) raises naming
+  it.
+* ``gpu_cost`` prices an axis whose groups span nodes of 8 cards at the
+  NIC's rate and one whose groups stay inside a node at NVLink's.
+* ``launch.roofline`` reads the fake world's records into rows.
 """
 import json
 import os
@@ -33,7 +38,7 @@ from torch._subclasses.fake_tensor import FakeTensorMode  # noqa: E402
 
 from repro_torch import api  # noqa: E402
 from repro_torch.core import gpu_cost  # noqa: E402
-from repro_torch.core.trace_cost import Counter  # noqa: E402
+from repro_torch.core.trace_cost import Counter, Counts  # noqa: E402
 from repro_torch.kernels import birrd_reduce as bk  # noqa: E402
 from repro_torch.kernels import gqa_decode as gk  # noqa: E402
 from repro_torch.kernels import linear_scan as lk  # noqa: E402
@@ -336,8 +341,11 @@ def test_dryrun_flops_near_repro_hlo(kind):
 
 # ------------------------------------------------------------------ CLI
 def test_dryrun_cli(tmp_path):
-    """A cell that traces writes its record; one that needs item 10b
-    (split-sequence KV decode) exits non-zero naming it."""
+    """A cell that traces writes its record; one that needs item 10b (b)
+    (mamba2 tensor parallelism) exits non-zero naming it.  llama3.2-3b's
+    8 KV heads do not divide 16: its ``decode_32k`` cell traces the cache
+    split by sequence on the last model rank, one ``gqa_decode_partial``
+    a layer, under 100 MB of collectives a device a step."""
     out = tmp_path / "phi3.json"
     ok = subprocess.run(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
@@ -350,12 +358,94 @@ def test_dryrun_cli(tmp_path):
     assert rec["kernels"]["gqa_decode"]["calls"] == 32
     assert rec["roofline"]["dominant"] == "memory"
     assert rec["n_params"] == rec["n_params_active"] > 3e9
+    out = tmp_path / "llama.json"
+    split = subprocess.run(
+        [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
+         "--arch", "llama3p2_3b", "--shape", "decode_32k", "--out",
+         str(out)], env=_env(), cwd=str(tmp_path), capture_output=True,
+        text=True, timeout=600)
+    assert split.returncode == 0, split.stderr[-3000:]
+    rec = json.loads(out.read_text())
+    assert rec["rank"]["model"] == 15 and rec["rank"]["global"] == 15
+    assert rec["kernels"] == {"gqa_decode_partial": {
+        "calls": 28, **{k: rec["kernels"]["gqa_decode_partial"][k]
+                        for k in ("flops", "bytes")}}}
+    assert 0 < rec["collective_bytes_per_device"] < 100e6
     bad = subprocess.run(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
-         "--arch", "llama3p2_3b", "--shape", "decode_32k"], env=_env(),
+         "--arch", "zamba2_2p7b", "--shape", "decode_32k"], env=_env(),
         cwd=str(tmp_path), capture_output=True, text=True, timeout=600)
     assert bad.returncode != 0
     assert "NotImplementedError" in bad.stderr and "item 10b" in bad.stderr
+
+
+LINKS = [({"data": 16, "model": 16}, {"data": "nic", "model": "nic"}),
+         ({"pod": 2, "data": 16, "model": 16},
+          {"pod": "nic", "data": "nic", "model": "nic"}),
+         ({"data": 32, "model": 8}, {"data": "nic", "model": "nvlink"}),
+         ({"data": 2, "model": 4}, {"data": "nvlink", "model": "nvlink"})]
+
+
+@pytest.mark.parametrize("shape,want", LINKS,
+                         ids=["x".join(map(str, s.values())) for s, _ in
+                              LINKS])
+def test_link_rates_by_node(shape, want):
+    """An axis whose groups (row-major ranks) stay inside one node of 8
+    cards rides NVLink; one whose groups span nodes the NIC: on 16x16 the
+    model axis's 16 consecutive ranks cover two nodes, the data axis's
+    stride of 16 crosses one at every hop; on 32x8 the model group is one
+    node; on 2x4 the whole mesh is.  The collective term divides each
+    axis's bytes by its rate."""
+    rate = {"nic": gpu_cost.NIC_BYTES_PER_S,
+            "nvlink": gpu_cost.NVLINK_BYTES_PER_S}
+    got = gpu_cost.axis_bytes_per_s(shape)
+    assert got == {a: rate[w] for a, w in want.items()}
+    terms = gpu_cost.terms_from_counts({}, 0.0, {a: 1e9 for a in shape},
+                                       256, shape)
+    assert terms.collective_s == pytest.approx(
+        sum(1e9 / rate[w] for w in want.values()))
+
+
+def test_roofline_reads_dryrun_records(argument_bytes, tmp_path):
+    """``launch.roofline`` on the records the fake world of 8 wrote: a row
+    a cell with the re-priced terms (as ``gpu_cost`` prices the counts),
+    the model-FLOP ratio (``gpu_cost.model_flops`` of the cell over the
+    mesh, over the counted FLOPs), fp32 against bf16 and peak live bytes
+    against 80 GB; the CLI prints them as a table."""
+    from repro_torch.launch import roofline
+    recs = argument_bytes["port"]
+    for arch, rec in recs.items():
+        (tmp_path / f"{arch}.json").write_text(json.dumps(rec))
+    rows = {r["arch"]: r for r in roofline.rows(tmp_path)}
+    assert set(rows) == set(recs)
+    for arch, rec in recs.items():
+        r = rows[arch]
+        shape = roofline._mesh_shape(rec["mesh"])
+        assert r["rank"] == shape["model"] - 1
+        terms = gpu_cost.terms_from_counts(
+            rec["flops_by_unit"], rec["bytes_per_device"],
+            Counts(collective_kinds=rec["collective_kinds"])
+            .collective_by_axis(), rec["chips"], shape)
+        assert r["bound_s"] == terms.bound_s
+        assert r["dominant"] == terms.dominant
+        cell = rec["cell"]
+        tokens = cell["global_batch"] * (
+            1 if cell["kind"] == "decode" else cell["seq_len"])
+        mf = (6 if cell["kind"] == "train" else 2) \
+            * rec["n_params_active"] * tokens / rec["chips"]
+        assert r["model_flops"] == pytest.approx(mf)
+        assert r["model_flops_ratio"] == pytest.approx(
+            mf / rec["flops_per_device"])
+        assert r["fp32_flops"] + r["bf16_flops"] == pytest.approx(
+            rec["flops_per_device"])
+        assert r["peak_share_of_hbm"] == pytest.approx(
+            rec["per_device"]["peak_live_bytes"] / 80e9)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+         str(tmp_path)], env=_env(), capture_output=True, text=True,
+        timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert len(out.stdout.strip().splitlines()) == 2 + len(recs)
 
 
 def test_model_params_count_matches_repro():

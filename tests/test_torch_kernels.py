@@ -188,10 +188,124 @@ def test_gqa_decode_ignores_kv_past_length():
     assert torch.allclose(y[0], v[0, 0].repeat_interleave(2, dim=0))
 
 
+def test_gqa_decode_partial_plain_stats():
+    """The plain ``gqa_decode_partial``: its output is ``gqa_decode``'s
+    (and the Pallas kernel's), ``m`` the row's largest scaled score and
+    ``l`` its ``sum exp(s - m)``, a whole softmax's statistics computed
+    here from the scores in float64; a row of length 0 is ``(0, -inf, 0)``
+    with no NaN."""
+    rng = np.random.default_rng(21)
+    b, hq, hkv, d, s = 4, 6, 2, 32, 70
+    q, k, v = (_np(rng, sh) for sh in ((b, hq, d), (b, s, hkv, d),
+                                       (b, s, hkv, d)))
+    lens = np.array([0, 1, 33, 70], dtype=np.int32)
+    out, m, l = ops.gqa_decode_partial(*map(torch.from_numpy, (q, k, v)),
+                                       torch.from_numpy(lens))
+    assert out.shape == (b, hq, d) and m.shape == l.shape == (b, hq)
+    assert m.dtype == l.dtype == torch.float32
+    assert not torch.isnan(out).any() and not torch.isnan(l).any()
+    assert torch.equal(out[0], torch.zeros(hq, d))
+    assert torch.all(m[0] == float("-inf")) and torch.all(l[0] == 0)
+    g = hq // hkv
+    sc = np.einsum("bhgd,bshd->bhgs", q.reshape(b, hkv, g, d).astype(
+        np.float64), k.astype(np.float64)) / np.sqrt(d)
+    for i in range(1, b):
+        row = sc[i, ..., :lens[i]].reshape(hq, lens[i])
+        m_want = row.max(-1)
+        assert_allclose(m[i].numpy(), m_want, rtol=1e-5, atol=1e-6)
+        assert_allclose(l[i].numpy(), np.exp(row - m_want[:, None]).sum(-1),
+                        rtol=1e-5)
+    want = jops.gqa_decode(*(jnp.asarray(a) for a in (q, k, v)),
+                           jnp.asarray(lens))
+    assert_allclose(out[1:].numpy(), np.asarray(want)[1:], rtol=2e-4,
+                    atol=2e-5)
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 7, 16])
+def test_merge_of_split_partials_is_the_whole_call(n):
+    """``merge_partials`` over ``n`` random blocks of S (``n`` - 1 random
+    cuts, blocks of one position among them), each through
+    ``gqa_decode_partial`` at its local lengths ``clamp(len - lo, 0,
+    block)``, so that short rows see empty blocks: the whole
+    ``ref.gqa_decode`` to 1e-6; a row of length 0, empty in every block,
+    merges to 0 with no NaN."""
+    from repro_torch.models.common import merge_partials
+    rng = np.random.default_rng(100 + n)
+    b, hq, hkv, d, s = 5, 8, 2, 16, 64
+    q, k, v = (torch.from_numpy(_np(rng, sh)) for sh in (
+        (b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lens = torch.tensor([0, 1, 5, 40, 64], dtype=torch.int32)
+    cuts = [0] + sorted(rng.choice(np.arange(1, s), n - 1,
+                                   replace=False).tolist()) + [s]
+    parts = [ops.gqa_decode_partial(
+        q, k[:, lo:hi].contiguous(), v[:, lo:hi].contiguous(),
+        torch.clamp(lens - lo, 0, hi - lo)) for lo, hi in zip(cuts, cuts[1:])]
+    o, m, l = (torch.stack(t) for t in zip(*parts))
+    got = merge_partials(o, m, l)
+    want = ref.gqa_decode(q, k, v, lens)
+    assert torch.equal(got[0], torch.zeros(hq, d))
+    assert (got[1:] - want[1:]).abs().max() <= 1e-6
+
+
+def _chunked_attention_no_skip(q, k, v, chunk):
+    """``chunked_attention``'s causal loop as it is, but over every KV
+    chunk for every query block (a hidden chunk included)."""
+    from repro_torch.models.common import NEG_INF
+    B, T, H, dh = q.shape
+    Hkv = k.shape[2]
+    G = H // Hkv
+    qf = q.reshape(B, T, Hkv, G, dh)
+    kf = k.reshape(B, T // chunk, chunk, Hkv, dh)
+    vf = v.reshape(B, T // chunk, chunk, Hkv, dh)
+    outs = []
+    for lo in range(0, T, chunk):
+        q_pos = lo + torch.arange(chunk)
+        m = torch.full((B, Hkv, G, chunk), NEG_INF)
+        l = torch.zeros((B, Hkv, G, chunk))
+        acc = torch.zeros((B, Hkv, G, chunk, dh))
+        for ci in range(T // chunk):
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qf[:, lo:lo + chunk],
+                             kf[:, ci]) * (1.0 / dh ** 0.5)
+            mask = q_pos[:, None] >= ci * chunk + torch.arange(chunk)[None]
+            s = torch.where(mask[None, None, None], s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhgqk,bkhd->bhgqd", p, vf[:, ci])
+            m = m_new
+        outs.append(acc / torch.clamp(l, min=1e-30)[..., None])
+    return torch.cat(outs, dim=3).permute(0, 3, 1, 2, 4).reshape(B, T, H, dh)
+
+
+@pytest.mark.parametrize("t,chunk,split", [(64, 16, 4), (96, 32, 3),
+                                           (64, 64, 2)])
+def test_chunked_attention_offset_and_skip_bit_exact(t, chunk, split):
+    """``chunked_attention`` on a block of the queries at its offset equals
+    the whole call's rows bit for bit, and so does the whole call against
+    the same loop without the causal chunk skip (a hidden chunk adds
+    exactly 0), so the block's call skips the chunks past its last
+    query."""
+    from repro_torch.models.common import chunked_attention
+    rng = np.random.default_rng(t + chunk)
+    q = torch.from_numpy(_np(rng, (2, t, 6, 16)))
+    k, v = (torch.from_numpy(_np(rng, (2, t, 2, 16))) for _ in range(2))
+    whole = chunked_attention(q, k, v, chunk=chunk)
+    blk = t // split
+    for r in range(split):
+        lo, hi = r * blk, (r + 1) * blk
+        got = chunked_attention(q[:, lo:hi], k, v, chunk=chunk, q_offset=lo)
+        assert torch.equal(got, whole[:, lo:hi])
+    assert torch.equal(_chunked_attention_no_skip(q, k, v, chunk), whole)
+
+
 def test_gqa_decode_cuda_wrapper_checks_before_any_build():
     q, k = torch.zeros(1, 4, 64), torch.zeros(1, 16, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         gk.gqa_decode_cuda(q, k, k, torch.ones(1, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        gk.gqa_decode_partial_cuda(q, k, k, torch.ones(1, dtype=torch.int32))
     assert gk._lib is None
     assert gk.library_path().parent == build.BUILD_DIR
     assert gk.library_path().name.startswith("libgqa_decode-")

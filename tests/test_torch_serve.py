@@ -271,7 +271,8 @@ for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
             "repro_torch.configs.whisper_small",
             "repro_torch.configs.dbrx_132b", "repro_torch.core.gpu_cost",
             "repro_torch.core.trace_cost", "repro_torch.launch.dryrun",
-            "repro_torch.launch.specs", "repro_torch.check",
+            "repro_torch.launch.specs", "repro_torch.launch.roofline",
+            "repro_torch.check",
             "repro_torch.check.__main__", "repro_torch.check.api_lint",
             "repro_torch.check.docs_gen", "repro_torch.check.plan_lint",
             "repro_torch.check.registry_lint", "repro_torch.check.smoke",

@@ -18,10 +18,23 @@ import torch
 import torch.distributed as dist
 
 
-def _model(arch: str, params):
-    from repro_torch import api
+#: whisper SMOKE's variant whose 6 heads (of 16 dims) and 30 frames do not
+#: divide a model axis of 4: its attention takes the split paths, and its
+#: cross cache stays whole on every rank, as whisper-small's 1500 frames do
+#: on 16
+VARIANT = {"n_heads": 6, "n_kv_heads": 6, "d_head": 16, "enc_frames": 30}
+
+
+def smoke_f32(arch: str, variant=False):
+    """The SMOKE config in f32 (with ``variant``, ``VARIANT``'s)."""
     from repro_torch.configs import get_config
     cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    return dataclasses.replace(cfg, **VARIANT) if variant else cfg
+
+
+def _model(arch: str, params, variant=False):
+    from repro_torch import api
+    cfg = smoke_f32(arch, variant)
     model = api.build_model(cfg, device="cpu")
     return model.load_params(api.to_torch_lm_params(params, cfg, "cpu"))
 
@@ -57,21 +70,26 @@ class clip_seen:
         adamw.clip_by_global_norm = self._real
 
 
-def train(mesh, arch, params, tokens, mode, steps=1):
+def train(mesh, arch, params, tokens, mode, steps=1, frames=None,
+          variant=False):
     """Losses, the first step's gradients as the optimiser gets them
     (gathered whole) and the global norm its clip computed, and the whole
-    updated parameters after ``steps`` steps."""
+    updated parameters after ``steps`` steps (an encoder-decoder's batch
+    with ``frames``)."""
     from repro_torch import api
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed.stepfn import full_named
-    model = _model(arch, params)
+    model = _model(arch, params, variant)
     step = api.make_train_step(model, mesh, layout_mode=mode)
     opt = api.adamw_init(model.params())
     col.reset_calls()
     losses = []
+    batch = {"tokens": tokens}
+    if frames is not None:
+        batch["frames"] = frames
     with clip_seen() as clip:
         for _ in range(steps):
-            opt, met = step(opt, {"tokens": tokens})
+            opt, met = step(opt, batch)
             losses.append(float(met["loss"]))
     calls = _counts()
     grads, gnorm = clip.seen[0]
@@ -231,22 +249,69 @@ def ep_slots(mesh, arch, params):
             "ref_max_abs": float(want.abs().max())}
 
 
-def serve(mesh, arch, params, tokens, max_seq, steps):
-    """Prefill then ``steps`` greedy decode steps through ``prefill_step``
-    and ``serve_step``: the logits of each."""
+def serve(mesh, arch, params, tokens, max_seq, steps, frames=None,
+          variant=False):
+    """Prefill (an encoder-decoder's over ``frames``) then ``steps``
+    greedy decode steps through ``prefill_step`` and ``serve_step``: the
+    global batch's logits of each (each data rank's rows gathered, outside
+    the counted collectives), and the calls of the decode kernels' entry
+    points on the decode steps (``kernel_calls``)."""
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed.stepfn import prefill_step, serve_step
-    model = _model(arch, params)
+    model = _model(arch, params, variant)
     B, T = tokens.shape
     col.reset_calls()
     with torch.no_grad():
-        cache, logits = prefill_step(model, mesh, B, T, max_seq)(tokens)
+        fn = prefill_step(model, mesh, B, T, max_seq,
+                          frames=frames is not None)
+        cache, logits = fn(tokens) if frames is None else fn(tokens, frames)
+        logits = _data_gathered(logits, mesh)
         step = serve_step(model, mesh, B, max_seq)
         outs = [logits]
-        for _ in range(steps):
-            cache, logits = step(cache, outs[-1].argmax(-1))
-            outs.append(logits)
-    return {"logits": torch.stack(outs).numpy(), "calls": _counts()}
+        with kernel_calls() as kernels:
+            for _ in range(steps):
+                cache, logits = step(cache, outs[-1].argmax(-1))
+                outs.append(_data_gathered(logits, mesh))
+    return {"logits": torch.stack(outs).numpy(), "calls": _counts(),
+            "kernel_calls": kernels.calls}
+
+
+def _data_gathered(t, mesh):
+    """Every data rank's rows of ``t`` (dim 0), in data-rank order."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.sharding import data_size
+    d = data_size(mesh)
+    out = t.new_empty((d * t.shape[0],) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous(),
+                                group=col.data_group(mesh))
+    return out
+
+
+class kernel_calls:
+    """Within the block, ``calls`` counts the calls of ``ops.gqa_decode``
+    and ``ops.gqa_decode_partial`` (the entry points of the decode
+    kernel and its partial variant)."""
+
+    NAMES = ("gqa_decode", "gqa_decode_partial")
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self._real = {n: getattr(ops, n) for n in self.NAMES}
+
+        def counted(name):
+            def fn(*args):
+                self.calls[name] += 1
+                return self._real[name](*args)
+            return fn
+        for n in self.NAMES:
+            setattr(ops, n, counted(n))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for n, fn in self._real.items():
+            setattr(ops, n, fn)
 
 
 def train_state(model):
@@ -317,19 +382,6 @@ def refuse(mesh, arch):
     return {"raised": None}
 
 
-def refuse_serve(mesh, arch, batch, max_seq):
-    """What ``serve_step`` raises for the SMOKE ``arch`` on the mesh."""
-    from repro_torch import api
-    from repro_torch.configs import get_config
-    from repro_torch.distributed.stepfn import serve_step
-    model = api.build_model(get_config(arch, smoke=True), device="cpu")
-    try:
-        serve_step(model, mesh, batch, max_seq)
-    except NotImplementedError as e:
-        return {"raised": "NotImplementedError", "message": str(e)}
-    return {"raised": None}
-
-
 def meshes(mesh):
     """The mesh builders over this world: their shapes and refusals."""
     from repro_torch.launch.mesh import make_local_mesh, make_production_mesh
@@ -348,7 +400,7 @@ def meshes(mesh):
 
 TASKS = {"meshes": meshes, "train": train, "loss": loss, "serve": serve,
          "save": save, "ep_slots": ep_slots, "refuse": refuse,
-         "refuse_serve": refuse_serve, "fsdp_train": fsdp_train,
+         "fsdp_train": fsdp_train,
          "held": held, "fsdp_save": fsdp_save}
 
 
