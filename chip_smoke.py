@@ -225,6 +225,27 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     ``wo``'s row block), against the one-device model on the same weights:
     identical greedy tokens, 28 ``gqa_decode_partial`` launches a step and
     no ``gqa_decode`` launch (the kernel line's launches).
+26. zamba2 through the mesh code on the one-rank NCCL mesh, the mamba2
+    mixers tensor-parallel (their collectives called on a group of one):
+    (i) zamba2-2.7b at full width and depth (weights at 0.08) at phase
+    15's serve shape: ``prefill_step``'s logits equal to
+    ``HybridModel.prefill``'s, then the prompt scanned in through
+    ``serve_step`` and greedy decode, tokens identical to the one-device
+    engine's batch on the same weights, 9 ``gqa_decode`` launches a step;
+    ``make_train_step(model, mesh, layout_mode=...)`` at full width cut to
+    6 layers (one shared-block invocation), weights at 0.2 (zeroing the
+    scan must move the loss), batch 8 x 1024, 3 steps in ``coswitch`` and
+    ``fixed`` against the one-device step (losses within 1e-6 relative,
+    every step's gradients bit for bit, 12 ``linear_scan`` launches a
+    step, ZeRO-1 on
+    ``repro``'s layer axis for the mixers' per-head leaves); both counts
+    are the kernel line's ``mesh_launches``; (ii) ``linear_scan`` at
+    zamba2's heads a rank (H 5 and 40 of 80, model axes 16 and 2; B 8, T
+    1024, bf16) against its plain version and the same heads of one
+    whole-H call, timed beside it; (iii) ``benchmarks/serve_bench_torch.py``
+    on ResNet-50 (32 requests, ``max_batch=8``): batched outputs equal to
+    sequential ones and at least 1.5x sequential throughput, or the run
+    fails.
 
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
@@ -427,6 +448,21 @@ SPLIT_DECODE_S = 32768       # decode_32k
 SPLIT_TRAIN_T = 4096         # train_4k
 SPLIT_ML_TOL = {"m": 1e-5, "l": 1e-4}   # f32 sums in another order
 SPLIT_MESH_STEPS = 8
+# phase 26: zamba2 through the mesh code (one NCCL rank), the scan at a
+# rank's heads, the serve gate
+HYBRID_TRAIN_LAYERS = 6      # one shared-block invocation (every 6th layer)
+HYBRID_TRAIN_BATCH = 8
+HYBRID_TRAIN_SEQ = 1024
+HYBRID_TRAIN_STEPS = 3
+# the tests' 10x the 0.02 init, where the mixer's scan shapes the loss:
+# zeroing the scan must move the first loss by HYBRID_SCAN_EFFECT of it,
+# 100x the limit the mesh's losses are held to (at ZAMBA_SCALE's 0.08 it
+# moved it by 3.2e-5 at 6 layers)
+HYBRID_TRAIN_SCALE = 0.2
+HYBRID_SCAN_EFFECT = 100 * MESH_TRAIN_REL
+RANK_SCAN_AXES = (16, 2)     # zamba2's 80 SSM heads: 5 and 40 a rank
+SERVE_GATE_ARGS = ["--graph", "resnet50", "--requests", "32",
+                   "--max-batch", "8"]
 
 
 def log(msg: str) -> None:
@@ -457,6 +493,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_profile():
+    """A ``torch.profiler`` profile of host and device activity."""
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5,
               attempts: int = 3):
     """Device milliseconds of one call of ``fn()``, from the kernel events
@@ -465,19 +507,20 @@ def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5,
     summed.  ``kernels=None`` takes every device event of the loop, each
     name weighted by its launches a call (its events over ``iters``,
     rounded: the yardsticks' own kernels).  The host's time to issue a call
-    is left out.  The profiler may keep only some of a loop's events (37 of
-    50 in one run), so the mean per event is taken, not the loop's sum over
-    ``iters``; now and then it keeps none of a kernel's, and the loop is
-    profiled again, up to ``attempts`` times.  Returns the time and
-    ``[name, device ms in all, events kept]`` a kernel."""
+    is left out.  The profiler may keep only some of a loop's events, the
+    last ones (15 of 20 scans in one run), so the mean per event is taken,
+    not the loop's sum over ``iters``; late in a run it may keep none of a
+    kernel's, and the loop is profiled again, up to ``attempts`` times,
+    after which CUDA events around the calls queued behind a spin
+    (``queued_ms``) time the whole call, whatever else it launches.
+    Returns the time and ``[name, device ms in all, events kept]`` a
+    kernel (``[name, "cuda events", iters]`` where the events timed it)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     for attempt in range(attempts):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
@@ -504,8 +547,9 @@ def kernel_ms(fn, kernels, iters: int = 50, warmup: int = 5,
             return ms, seen
         log(f"[profile] no {kernel} event kept (attempt {attempt + 1} of "
             f"{attempts})")
-    raise AssertionError(f"the profiler saw no {kernel} event in "
-                         f"{attempts} attempts")
+    ms = queued_ms(fn, iters=iters, warmup=0)
+    log(f"[profile] {kernel}: timed by CUDA events, {ms:.4f} ms a call")
+    return ms, [[kernel, "cuda events", iters]]
 
 
 def queued_ms(fn, iters: int = 50, warmup: int = 5) -> float:
@@ -941,7 +985,6 @@ def phase_profile(torch, api, obs, cache, nets) -> dict:
     requests for requests/s and its spread, then one more under
     ``torch.profiler`` for where the wall time goes and the device's busy
     share."""
-    from torch.profiler import ProfilerActivity, profile
     graph, _ = nets["resnet50"]
     reqs = list(torch.randn((N_WINDOW,) + tuple(graph.input_shape()[1:]),
                             generator=torch.Generator().manual_seed(4))
@@ -956,8 +999,7 @@ def phase_profile(torch, api, obs, cache, nets) -> dict:
             t0 = time.perf_counter()
             eng.serve(reqs)
             rates.append(N_WINDOW / (time.perf_counter() - t0))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             eng.serve(reqs)
             wall_s = time.perf_counter() - t0
@@ -1116,7 +1158,6 @@ def lm_teacher_forced(torch, model, prompts, gen_tokens) -> dict:
 def phase_lm_serve(torch, api, gk, obs) -> dict:
     """The LM path: llama3.2-3b served at full width on the card."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     cfg = api.get_config(LM_ARCH, smoke=LM_SMOKE)
     rng = np.random.default_rng(7)
     reqs = [rng.integers(0, cfg.vocab, LM_PROMPT).astype(np.int32)
@@ -1147,8 +1188,7 @@ def phase_lm_serve(torch, api, gk, obs) -> dict:
         decode = obs.hist_stats("serve.decode_ms_per_token")
         obs.reset()                                # profile untraced
         before = gk.launch_count()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             eng.serve(reqs[:LM_BATCH])
             wall_s = time.perf_counter() - t0
@@ -1366,7 +1406,6 @@ def phase_train(torch, api, lk, obs) -> dict:
     import math
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import gpu_cost
     from repro_torch.kernels.ops import BACKWARD_RANGE
@@ -1421,8 +1460,7 @@ def phase_train(torch, api, lk, obs) -> dict:
     if not losses[-1] < losses[0]:
         raise AssertionError(f"loss did not fall: {losses}")
     steady = float(np.median(step_ms[1:])) if steps > 1 else step_ms[0]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t1 = time.perf_counter()
         opt, m = step(opt, stream.batch_at(steps))
         float(m["loss"])
@@ -1899,7 +1937,6 @@ def phase_zamba_serve(torch, api, ops, ref, gk, lk, obs) -> dict:
     bf16 every layer's ``linear_scan`` on a 1024-token forward against its
     plain version on the same inputs (the kernel timed there)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import ssm
     cfg = api.get_config(ZAMBA_ARCH, smoke=ZAMBA_SMOKE)
@@ -1938,8 +1975,7 @@ def phase_zamba_serve(torch, api, ops, ref, gk, lk, obs) -> dict:
         decode = obs.hist_stats("serve.decode_ms_per_token")
         obs.reset()                                # profile untraced
         t_prof = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             eng.serve(reqs)                        # one batch of 8
             wall_s = time.perf_counter() - t0
@@ -2470,7 +2506,6 @@ def phase_whisper_serve(torch, api, gk, obs) -> dict:
     batch, identical tokens (whisper's rows are independent, unlike an
     MoE's)."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     cfg = api.get_config(WHISPER_ARCH, smoke=WHISPER_SMOKE)
     rng = np.random.default_rng(83)
     reqs = [rng.integers(0, cfg.vocab, WHISPER_PROMPT).astype(np.int32)
@@ -2503,8 +2538,7 @@ def phase_whisper_serve(torch, api, gk, obs) -> dict:
         decode = obs.hist_stats("serve.decode_ms_per_token")
         obs.reset()                                # profile untraced
         before = gk.launch_count()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             t0 = time.perf_counter()
             eng.serve(reqs[:WHISPER_BATCH])
             wall_s = time.perf_counter() - t0
@@ -2692,7 +2726,6 @@ def phase_moe(torch, api, ops, ref, gk) -> dict:
     import gc
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
     rec = {}
     for arch in MOE_ARCHS:
         cfg = dataclasses.replace(api.get_config(arch, smoke=MOE_SMOKE),
@@ -2750,8 +2783,7 @@ def phase_moe(torch, api, ops, ref, gk) -> dict:
                     cache["layers"][k].copy_(v)
                 cache["length"].copy_(length0)
 
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with device_profile() as prof:
                 t0 = time.perf_counter()
                 for j in range(LM_TF_STEPS):
                     model.decode_step(cache, served[:, j])
@@ -2976,7 +3008,6 @@ def phase_mesh(torch, api, gk, lk, moe) -> dict:
 
     import numpy as np
     import torch.distributed as dist
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.distributed import collectives as col
     mesh = api.make_local_mesh(1, DEV)
@@ -3021,8 +3052,7 @@ def phase_mesh(torch, api, gk, lk, moe) -> dict:
         gqa = gk.launch_count()
         calls = dict(col.CALLS)              # ... and ends here
         col.reset_calls()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             step(cache, tok2[:, -1])
             torch.cuda.synchronize()
         step_calls = dict(col.CALLS)
@@ -3165,13 +3195,11 @@ def roofline_share(torch, counts, fn) -> dict:
     the roofline bound of ``counts`` on the H100's data-sheet rates: the
     share must stay at or below 1 / ``ROOF_MIN`` (a larger one means the
     count claims more work than the card did)."""
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import gpu_cost
     terms = gpu_cost.terms_from_counts(counts.flops, counts.bytes, {}, 1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         fn()
         torch.cuda.synchronize()
     _, busy_ms = device_time_by_kernel(prof)
@@ -3601,6 +3629,286 @@ def split_mesh_route(torch, api, gk) -> dict:
     return rec
 
 
+def hybrid_mesh_serve(torch, api, gk, mesh) -> dict:
+    """Phase 26 (i), serving: zamba2 at full width and depth through
+    ``prefill_step`` (its logits against ``HybridModel.prefill``'s) and
+    ``serve_step`` (the prompt scanned in, then greedy decode, as the
+    engine does), against the one-device engine's tokens on the same
+    weights."""
+    import gc
+
+    import numpy as np
+
+    from repro_torch.distributed import collectives as col
+    cfg = api.get_config(ZAMBA_ARCH, smoke=ZAMBA_SMOKE)
+    B, P, G = ZAMBA_BATCH, ZAMBA_PROMPT, ZAMBA_GEN
+    S = P + G
+    prompts = np.random.default_rng(260).integers(0, cfg.vocab, (B, P))
+    kw = dict(arch=ZAMBA_ARCH, smoke=ZAMBA_SMOKE, max_batch=B,
+              prompt_len=P, gen=G, seed=ZAMBA_SEED, device=DEV)
+    eng = api.ServeEngine(api.ServeConfig(workers=1, **kw))
+    one = eng.model.init(torch.Generator(device=DEV).manual_seed(ZAMBA_SEED),
+                         scale=ZAMBA_SCALE)
+    model = api.build_model(cfg, device=DEV).load_params(one.params())
+    toks = torch.from_numpy(prompts).to(DEV)
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        want = np.stack(eng._backend.run(None, list(prompts)))
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        _, want_pre = one.prefill(toks, S)
+        pre = api.prefill_step(model, mesh, B, P, S)
+        step = api.serve_step(model, mesh, B, S)
+        _, got_pre = pre(toks)
+        gk.reset_launch_count()
+        col.reset_calls()                  # the mesh's serve path starts
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = model.init_cache(B, S)
+        for t in range(P):
+            cache, logits = step(cache, toks[:, t])
+        out = [torch.argmax(logits, -1)]
+        for _ in range(G - 1):
+            cache, logits = step(cache, out[-1])
+            out.append(torch.argmax(logits, -1))
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches = gk.launch_count()
+        calls = dict(col.CALLS)            # ... and ends here
+    got = torch.stack(out, 1).to(torch.int32).cpu().numpy()
+    steps = P + G - 1
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers, "batch": B,
+           "prompt_len": P, "gen": G, "scale": ZAMBA_SCALE,
+           "tokens_identical": bool(np.array_equal(got, want)),
+           "prefill_max_abs_dlogit": max_err(got_pre, want_pre),
+           "prefill_ref_max_abs": float(want_pre.float().abs().max()),
+           "gqa_launches": launches,
+           "gqa_launches_per_step": launches / steps,
+           "collectives": calls,
+           "collectives_per_step": {k: v / steps for k, v in calls.items()},
+           "engine_batch_s": one_s, "mesh_batch_s": mesh_s,
+           "ms_per_step": {"one_device": one_s * 1e3 / steps,
+                           "mesh": mesh_s * 1e3 / steps}}
+    log("[hybrid mesh serve] " + json.dumps(rec))
+    del eng, one, model, cache, pre, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not rec["tokens_identical"]:
+        raise AssertionError("zamba2 on the mesh: tokens differ from the "
+                             "one-device engine's")
+    # one rank computes what one device does, op for op: equal logits
+    if rec["prefill_max_abs_dlogit"] != 0.0:
+        raise AssertionError(f"zamba2 prefill_step's logits "
+                             f"{rec['prefill_max_abs_dlogit']} from one "
+                             f"device's")
+    inv = (cfg.n_layers + cfg.shared_attn_every - 1) // cfg.shared_attn_every
+    if launches != steps * inv:
+        raise AssertionError(f"{launches} gqa_decode launches on the mesh, "
+                             f"want {steps * inv}")
+    if not calls["all_gather"] or not calls["all_reduce"]:
+        raise AssertionError(f"the mixers' collectives were not called: "
+                             f"{calls}")
+    return rec
+
+
+def hybrid_mesh_train(torch, api, lk, mesh) -> dict:
+    """Phase 26 (i), training: zamba2 at full width, cut to
+    ``HYBRID_TRAIN_LAYERS`` (one shared-block invocation), through
+    ``make_train_step(model, mesh, layout_mode=...)`` in both modes against
+    the one-device step from the same weights: the losses, and every
+    step's gradients as the optimiser's clip gets them (gathered whole),
+    bit for bit.  A one-device loss with the scan zeroed shows how much
+    the scan shapes the loss at ``HYBRID_TRAIN_SCALE``."""
+    import gc
+
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.stepfn import full_named
+    from repro_torch.kernels import ops
+    from repro_torch.optim import adamw
+    cfg = dataclasses.replace(api.get_config(ZAMBA_ARCH, smoke=ZAMBA_SMOKE),
+                              n_layers=HYBRID_TRAIN_LAYERS)
+    weights = api.build_model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(ZAMBA_SEED),
+        scale=HYBRID_TRAIN_SCALE).params()
+    weights = {k: v.detach().clone() for k, v in weights.items()}
+    stream = api.SyntheticLMStream(api.DataConfig(
+        vocab=cfg.vocab, global_batch=HYBRID_TRAIN_BATCH,
+        seq_len=HYBRID_TRAIN_SEQ))
+
+    def train(mode):
+        model = api.build_model(cfg, device=DEV).load_params(weights)
+        step = api.make_train_step(model) if mode is None else \
+            api.make_train_step(model, mesh, layout_mode=mode)
+        opt = api.adamw_init(model.params())
+        losses, seen = [], []
+        clip = adamw.clip_by_global_norm
+
+        def seen_clip(grads, max_norm, reduce=None):
+            seen.append({k: g.detach().clone() for k, g in grads.items()})
+            return clip(grads, max_norm, reduce)
+
+        adamw.clip_by_global_norm = seen_clip
+        try:
+            lk.reset_launch_count()
+            col.reset_calls()              # the path starts
+            for s in range(HYBRID_TRAIN_STEPS):
+                if s == 1:                 # the first step warms the path
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                opt, met = step(opt, stream.batch_at(s))
+                losses.append(float(met["loss"]))
+            ms = (time.perf_counter() - t0) * 1e3 / (HYBRID_TRAIN_STEPS - 1)
+            out = {"losses": losses, "step_ms_after_the_first": ms,
+                   "scan_launches": lk.launch_count(),   # ... and ends here
+                   "collectives": dict(col.CALLS),
+                   "zero1_leaves": sum(getattr(p, "zero1", None) is not None
+                                       for p in model.params().values()),
+                   "layer_sharded": sorted(model.placement["layers"])
+                   if model.mesh is not None else []}
+        finally:
+            adamw.clip_by_global_norm = clip
+        grads = [full_named(model, g, state=True) for g in seen]
+        del model, opt, step, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+        return out, grads
+
+    def first_loss(scan):
+        """The first batch's loss on one device with ``scan`` as
+        ``ops.linear_scan`` (no update)."""
+        model = api.build_model(cfg, device=DEV).load_params(weights)
+        real, ops.linear_scan = ops.linear_scan, scan
+        try:
+            with torch.no_grad():
+                batch = {k: torch.as_tensor(v, device=DEV)
+                         for k, v in stream.batch_at(0).items()}
+                return float(model.loss(batch))
+        finally:
+            ops.linear_scan = real
+            del model
+
+    base, want = train(None)
+    again = train(None)[0]["losses"]
+    zero = first_loss(lambda q, k, v, w: torch.zeros_like(v))
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "batch": HYBRID_TRAIN_BATCH, "seq": HYBRID_TRAIN_SEQ,
+           "steps": HYBRID_TRAIN_STEPS, "scale": HYBRID_TRAIN_SCALE,
+           "one_device": base, "one_device_again": again,
+           "one_device_max_rel_diff": max(
+               abs(a - b) / abs(b) for a, b in zip(again, base["losses"])),
+           "zero_scan_first_loss": zero,
+           "zero_scan_rel_effect": abs(zero - base["losses"][0])
+           / abs(base["losses"][0])}
+    want_scan = 2 * cfg.n_layers * HYBRID_TRAIN_STEPS
+    for mode in ("coswitch", "fixed"):
+        got, grads = train(mode)
+        got["max_rel_loss_diff"] = max(
+            abs(a - b) / abs(b) for a, b in zip(got["losses"],
+                                                 base["losses"]))
+        got["grads_compared"] = sum(len(g) for g in grads)
+        got["grads_differing"] = sorted(
+            f"{s}:{k}" for s, (g, w) in enumerate(zip(grads, want))
+            for k in w if not torch.equal(g[k], w[k]))
+        del grads
+        rec[mode] = got
+        log(f"[hybrid mesh train] {mode}: " + json.dumps(got))
+        if got["scan_launches"] != want_scan:
+            raise AssertionError(f"zamba2 {mode}: {got['scan_launches']} "
+                                 f"linear_scan launches, want {want_scan}")
+        if not got["max_rel_loss_diff"] <= MESH_TRAIN_REL:
+            raise AssertionError(f"zamba2 {mode}: losses {got['losses']} vs "
+                                 f"one device {base['losses']}")
+        # one rank computes what one device does, op for op
+        if got["grads_differing"] or got["grads_compared"] != \
+                HYBRID_TRAIN_STEPS * len(want[0]):
+            raise AssertionError(f"zamba2 {mode}: of {got['grads_compared']}"
+                                 f" gradients, these differ from one "
+                                 f"device's: {got['grads_differing'][:8]}")
+        if not got["collectives"]["all_gather"] or not got["zero1_leaves"]:
+            raise AssertionError(f"zamba2 {mode}: {got['collectives']}, "
+                                 f"{got['zero1_leaves']} ZeRO-1 leaves")
+    log("[hybrid mesh train] " + json.dumps(rec))
+    if not rec["zero_scan_rel_effect"] > HYBRID_SCAN_EFFECT:
+        raise AssertionError(f"zamba2 train: zeroing the scan moves the "
+                             f"loss by {rec['zero_scan_rel_effect']}")
+    del want
+    return rec
+
+
+def rank_scans(torch, ops, ref, lk) -> dict:
+    """Phase 26 (ii): ``linear_scan`` at zamba2's heads a rank (80 SSM
+    heads over model axes of 16 and 2: H 5 and 40; B 8, T 1024, state 64,
+    head dim 64, bf16) against its plain version and against the same
+    heads of one call over all 80, timed beside that call."""
+    from repro_torch import api
+    from repro_torch.models.ssm import _dims
+    _, state, heads, hd = _dims(api.get_config(ZAMBA_ARCH,
+                                               smoke=ZAMBA_SMOKE))
+    q, k, v, w = scan_inputs(torch, ZAMBA_BATCH, heads, ZAMBA_SCAN_T, state,
+                             hd, torch.bfloat16, 261)
+    with torch.inference_mode():
+        whole = ops.linear_scan(q, k, v, w)
+        rec = {"whole": scan_times(torch, ops, ref, [lk.KERNEL], q, k, v, w)}
+        for m in RANK_SCAN_AXES:
+            h = heads // m
+            cut = [t[:, -h:].contiguous() for t in (q, k, v, w)]
+            before = lk.launch_count()
+            got = ops.linear_scan(*cut)
+            launched = lk.launch_count() - before
+            plain = ref.linear_scan_chunked(*cut)
+            top = float(plain.float().abs().max())
+            rec[f"H{h}"] = {
+                "model_axis": m, "launches": launched,
+                "max_abs_err": max_err(got, plain), "ref_max_abs": top,
+                "vs_whole_slice": max_err(got, whole[:, -h:]),
+                "bitwise_whole_slice": bool(torch.equal(got,
+                                                        whole[:, -h:])),
+                **scan_times(torch, ops, ref, [lk.KERNEL], *cut)}
+            r = rec[f"H{h}"]
+            if launched != 1 or not r["max_abs_err"] <= \
+                    SCAN_TOL["bf16"] * top or not r["vs_whole_slice"] <= \
+                    SCAN_TOL["bf16"] * top:
+                raise AssertionError(f"linear_scan at H {h}: {r}")
+    log("[rank scans] " + json.dumps(rec))
+    return rec
+
+
+def serve_gate() -> dict:
+    """Phase 26 (iii): ``benchmarks/serve_bench_torch.py`` on ResNet-50 on
+    the card (its ``main``, which exits non-zero below its 1.5x gate or
+    where batched outputs differ from sequential ones)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "serve_bench_torch", ROOT / "benchmarks" / "serve_bench_torch.py")
+    sb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sb)
+    entry = sb.main(SERVE_GATE_ARGS + ["--device", DEV])
+    rec = {"args": SERVE_GATE_ARGS, "speedup": entry["speedup"],
+           "min_speedup": sb.MIN_SPEEDUP,
+           "outputs_identical": entry["outputs_identical"],
+           "batched_rps": entry["batched"]["throughput_rps"],
+           "sequential_rps": entry["sequential"]["throughput_rps"],
+           "batched_p50_ms": entry["batched"]["p50_ms"],
+           "batched_p99_ms": entry["batched"]["p99_ms"],
+           "mean_batch": entry["batched"]["mean_batch"],
+           "plan_s": entry["plan_s"], "total_s": entry["total_s"]}
+    log("[serve gate] " + json.dumps(rec))
+    if not rec["outputs_identical"] or rec["speedup"] < sb.MIN_SPEEDUP:
+        raise AssertionError(f"serve gate: {rec}")
+    return rec
+
+
+def phase_hybrid_mesh(torch, api, ops, ref, gk, lk) -> dict:
+    """26. zamba2 through the mesh code on the one-rank NCCL mesh (serving
+    at phase 15's shape, training at 6 layers in both layout modes), the
+    scan at a rank's heads, and the port's serve gate."""
+    mesh = api.make_local_mesh(1, DEV)
+    return {"serve": hybrid_mesh_serve(torch, api, gk, mesh),
+            "train": hybrid_mesh_train(torch, api, lk, mesh),
+            "rank_scans": rank_scans(torch, ops, ref, lk),
+            "serve_gate": serve_gate()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -3677,6 +3985,8 @@ def main(argv=None) -> int:
     record["analysis"] = run("analysis", phase_analysis, torch, api, gk,
                              record)
     record["split"] = run("split", phase_split, torch, api, ops, ref, gk)
+    record["hybrid_mesh"] = run("hybrid_mesh", phase_hybrid_mesh, torch, api,
+                                ops, ref, gk, lk)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
@@ -3684,6 +3994,7 @@ def main(argv=None) -> int:
     sc = record["scan_sweep"]["train_shape"]
     bd = record["birrd"]
     sp = record["split"]["llama_times"]
+    hyb = record["hybrid_mesh"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
@@ -3695,14 +4006,25 @@ def main(argv=None) -> int:
         "name": "gqa_decode", "route": "cuda", "source": GQA_SOURCE,
         "replaces": GQA_REPLACES,
         "launches": record["lm_serve"]["gqa_launches"],
-        "mesh_launches": record["mesh"]["llama"]["gqa_launches"],
+        "mesh_launches": record["mesh"]["llama"]["gqa_launches"]
+        + hyb["serve"]["gqa_launches"],
+        "mesh_launches_by_path": {
+            "llama3.2-3b serve (phase 23)":
+            record["mesh"]["llama"]["gqa_launches"],
+            "zamba2-2.7b serve (phase 26)": hyb["serve"]["gqa_launches"]},
         "max_abs_err": gq["max_abs_err"], "ms": gq["ms"],
         "plain_ms": gq["plain_ms"], "bound_ms": gq["bound_ms"],
         "bound_by": gq["bound_by"], "library_ms": gq["library_ms"]}, {
         "name": "linear_scan", "route": "cuda", "source": SCAN_SOURCE,
         "replaces": SCAN_REPLACES,
         "launches": record["train"]["scan_launches"],
-        "mesh_launches": record["mesh"]["rwkv6"]["coswitch"]["scan_launches"],
+        "mesh_launches": record["mesh"]["rwkv6"]["coswitch"]["scan_launches"]
+        + hyb["train"]["coswitch"]["scan_launches"],
+        "mesh_launches_by_path": {
+            "rwkv6-1.6b train coswitch (phase 23)":
+            record["mesh"]["rwkv6"]["coswitch"]["scan_launches"],
+            "zamba2-2.7b train coswitch (phase 26)":
+            hyb["train"]["coswitch"]["scan_launches"]},
         "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
         "bound_by": sc["bound_by"], "library_ms": None}, {

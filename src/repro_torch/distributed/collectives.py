@@ -37,7 +37,14 @@ mesh dimension it spans once ``label_mesh`` has seen the mesh
 ``pod+data`` for the flattened data group of a three-axis mesh
 (``data+model`` where both dimensions are one group, on one rank); any
 other group is ``group``.  A group of one rank still runs every
-collective.
+collective.  ``all_gather`` and ``reduce_scatter`` return an activation
+contiguous, laid out as one device's would be, and so its gradient: a
+permuted one (the view a gather along a dim other than 0 leaves) sends
+later ops (an embedding's or a norm weight's gradient) down another
+summation order, and one rank would not compute bit for bit what one
+device does.  A weight gathered for a product passes
+``contiguous=False`` and keeps the view, which the product reads without
+a copy of the whole weight.
 """
 from __future__ import annotations
 
@@ -164,28 +171,35 @@ class _Copy(torch.autograd.Function):
         return _all_reduce(g, ctx.group), None
 
 
+def _dense(x: torch.Tensor, contiguous: bool) -> torch.Tensor:
+    return x.contiguous() if contiguous else x
+
+
 class _ReduceScatter(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return _reduce_scatter(x, dim, group)
+    def forward(ctx, x, dim, group, contiguous):
+        ctx.dim, ctx.group, ctx.contiguous = dim, group, contiguous
+        return _dense(_reduce_scatter(x, dim, group), contiguous)
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.group), None, None
+        return (_dense(_all_gather(g, ctx.dim, ctx.group), ctx.contiguous),
+                None, None, None)
 
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, group, replicated):
+    def forward(ctx, x, dim, group, replicated, contiguous):
         ctx.dim, ctx.group, ctx.replicated = dim, group, replicated
-        return _all_gather(x, dim, group)
+        ctx.contiguous = contiguous
+        return _dense(_all_gather(x, dim, group), contiguous)
 
     @staticmethod
     def backward(ctx, g):
         if ctx.replicated:
-            return _split(g, ctx.dim, ctx.group), None, None, None
-        return _reduce_scatter(g, ctx.dim, ctx.group), None, None, None
+            return _split(g, ctx.dim, ctx.group), None, None, None, None
+        return (_dense(_reduce_scatter(g, ctx.dim, ctx.group),
+                       ctx.contiguous), None, None, None, None)
 
 
 class _Split(torch.autograd.Function):
@@ -196,7 +210,7 @@ class _Split(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _all_gather(g, ctx.dim, ctx.group), None, None
+        return _all_gather(g, ctx.dim, ctx.group).contiguous(), None, None
 
 
 class _AllToAll(torch.autograd.Function):
@@ -241,15 +255,17 @@ def copy(x: torch.Tensor, group) -> torch.Tensor:
     return _Copy.apply(x, group)
 
 
-def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def reduce_scatter(x: torch.Tensor, dim: int, group,
+                   contiguous: bool = True) -> torch.Tensor:
     """Sum over ``group`` and keep this rank's block of ``dim``."""
-    return _ReduceScatter.apply(x, dim, group)
+    return _ReduceScatter.apply(x, dim, group, contiguous)
 
 
-def all_gather(x: torch.Tensor, dim: int, group, replicated: bool = False
-               ) -> torch.Tensor:
-    """The ranks' blocks concatenated along ``dim`` in rank order."""
-    return _AllGather.apply(x, dim, group, replicated)
+def all_gather(x: torch.Tensor, dim: int, group, replicated: bool = False,
+               contiguous: bool = True) -> torch.Tensor:
+    """The ranks' blocks concatenated along ``dim`` in rank order
+    (``contiguous=False``: a weight's view, see the module's note)."""
+    return _AllGather.apply(x, dim, group, replicated, contiguous)
 
 
 def split(x: torch.Tensor, dim: int, group) -> torch.Tensor:

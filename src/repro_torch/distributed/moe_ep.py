@@ -82,9 +82,11 @@ def moe_apply_ep(cfg: ArchConfig, p, x: torch.Tensor, mesh,
         E_loc, m * C, D)
 
     # FSDP: the data shards of this rank's experts, gathered
-    wg = col.all_gather(p["wg"], 2, dg) if cfg.act == "swiglu" else None
-    out_e = moe_experts(cfg, recv, col.all_gather(p["wu"], 2, dg), wg,
-                        col.all_gather(p["wd"], 1, dg))
+    def whole(w, dim):
+        return col.all_gather(w, dim, dg, contiguous=False)
+
+    wg = whole(p["wg"], 2) if cfg.act == "swiglu" else None
+    out_e = moe_experts(cfg, recv, whole(p["wu"], 2), wg, whole(p["wd"], 1))
 
     # home again (the reverse exchange): the RIR combine
     out_e = out_e.reshape(E_loc, m, C, D).transpose(0, 1).contiguous()
@@ -93,7 +95,7 @@ def moe_apply_ep(cfg: ArchConfig, p, x: torch.Tensor, mesh,
     if cfg.shared_expert:
         combined = combined + _shared(
             cfg, p["shared"], flat,
-            lambda t, dim: col.copy(col.all_gather(t, dim, dg), mg))
+            lambda t, dim: col.copy(whole(t, dim), mg))
     out = combined.reshape(B_loc, T_loc, D)
     return (out, slot) if return_slot else out
 
@@ -163,7 +165,7 @@ def moe_apply_tp(cfg: ArchConfig, p, x: torch.Tensor, mesh) -> torch.Tensor:
         return col.copy(t, mg) if split else t
 
     def whole(w, dim):
-        return col.all_gather(w, dim, dg) if by_data else w
+        return col.all_gather(w, dim, dg, contiguous=False) if by_data else w
 
     flat, _, (top, idx) = moe_route(cfg, p, x)
     gates = torch.softmax(top, dim=-1)

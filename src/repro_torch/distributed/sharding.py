@@ -430,3 +430,29 @@ def kv_order(cfg, m: int) -> Optional[torch.Tensor]:
         cols.append(torch.arange(r * w, (r + 1) * w))
         cols.append(Hkv * dh + torch.arange(r * w, (r + 1) * w))
     return torch.cat(cols)
+
+
+def ssm_order(cfg, m: int) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+    """The column orders that make the mamba2 mixer's packed leaves split
+    by SSM head: for ``in_proj`` (``(D, 2 di + 2 state + heads)``, z | x |
+    B | C | dt), rank ``r``'s block holds its heads' z columns, its heads'
+    x columns, its ``state/m`` slice of B, its slice of C and its heads' dt
+    columns; for the conv's channels (``conv_w`` ``(W, di + 2 state)``,
+    ``conv_b``; x | B | C), its heads' x channels and its B and C slices.
+    Each rank so holds ``1/m`` of every leaf, as a contiguous split does.
+    None where the heads or the state do not divide ``m``."""
+    from repro_torch.models.ssm import _dims
+    di, state, heads, _ = _dims(cfg)
+    if heads % m or state % m:
+        return None
+    xw, sw, hw = di // m, state // m, heads // m
+
+    def block(r, starts_widths):
+        return torch.cat([torch.arange(s + r * w, s + (r + 1) * w)
+                          for s, w in starts_widths])
+
+    proj = [(0, xw), (di, xw), (2 * di, sw), (2 * di + state, sw),
+            (2 * di + 2 * state, hw)]
+    conv = [(0, xw), (di, sw), (di + state, sw)]
+    return (torch.cat([block(r, proj) for r in range(m)]),
+            torch.cat([block(r, conv) for r in range(m)]))

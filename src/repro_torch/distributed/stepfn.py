@@ -5,7 +5,8 @@ parameters, so a train step takes and returns the optimiser state only
 and updates the model in place.  Under a mesh (``make_local_mesh``) the
 builders first place the model (``place_model``): each parameter becomes
 its local block of ``sharding.param_shardings``' placement (the packed
-``wkv`` split by KV head), the model gets the mesh, its
+``wkv`` split by KV head, the mamba2 mixer's packed ``in_proj`` and its
+conv's channels by SSM head: ``leaf_order``), the model gets the mesh, its
 ``TensorParallel`` context and the layer-boundary hook of the layout mode,
 and every block runs on plain local tensors with explicit collectives.
 Each rank takes its data rank's rows of the global batch (all of them
@@ -45,12 +46,25 @@ from . import collectives as col
 from .sharding import (DataBlock, LayerSharded, Spec, _axes, _depths,
                        axis_sizes, cache_shardings, data_dim, data_size,
                        gather, hidden_sharding, kv_order, opt_shardings,
-                       param_shardings, place, repro_path, spec_str)
+                       param_shardings, place, repro_path, spec_str,
+                       ssm_order)
 
 
 # ------------------------------------------------------------ placement
-def _is_kv(name: str) -> bool:
-    return name.endswith("wkv")
+def leaf_order(cfg, m: int, name: str) -> Optional[torch.Tensor]:
+    """The order of the last axis in which the parameter ``name`` is placed
+    on a model axis of ``m``: ``kv_order`` for a packed ``wkv``,
+    ``ssm_order`` for a mamba2 mixer's ``in_proj``, ``conv_w`` and
+    ``conv_b``; None for a leaf placed as it is.  A whole leaf crosses it
+    on every path: placement, a save's gather, a restore."""
+    leaf = name.rsplit(".", 1)[-1]
+    if leaf == "wkv":
+        return kv_order(cfg, m)
+    if leaf in ("in_proj", "conv_w", "conv_b") and _is_mamba2(cfg):
+        order = ssm_order(cfg, m)
+        if order is not None:
+            return order[0] if leaf == "in_proj" else order[1]
+    return None
 
 
 def _refuse(model, m: int, fsdp: bool) -> None:
@@ -62,11 +76,12 @@ def _refuse(model, m: int, fsdp: bool) -> None:
             f"(no config of it reaches 8e9 parameters)")
     if m == 1:
         return
-    if _is_mamba2(cfg):
+    if _is_mamba2(cfg) and ssm_order(cfg, m) is None:
+        from repro_torch.models.ssm import _dims
+        _, state, heads, _ = _dims(cfg)
         raise NotImplementedError(
-            f"{cfg.name}: tensor parallelism for the mamba2 mixer of the "
-            f"{cfg.family} family is not ported: model axis {m} above 1; "
-            f"ROADMAP.md Queue 1 item 10b (b)")
+            f"{cfg.name}: the mamba2 mixer's {heads} SSM heads or its "
+            f"ssm_state {state} do not split over a model axis of {m}")
     if _is_rwkv(cfg):
         from repro_torch.models.ssm import _LORA_RANK, _dims
         heads = _dims(cfg)[2]
@@ -77,6 +92,10 @@ def _refuse(model, m: int, fsdp: bool) -> None:
     if cfg.d_ff and cfg.d_ff % m and cfg.family != "moe":
         raise NotImplementedError(f"{cfg.name}: d_ff {cfg.d_ff} does not "
                                   f"split over a model axis of {m}")
+    if cfg.family == "hybrid" and cfg.d_model % m:
+        raise NotImplementedError(f"{cfg.name}: the shared block's "
+                                  f"concat_proj ({cfg.d_model} columns) "
+                                  f"does not split over a model axis of {m}")
 
 
 def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
@@ -102,7 +121,6 @@ def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
     base = param_shardings(mesh, specs)
     sh = {n: base[n] if isinstance(s, LayerSharded) else s
           for n, s in p_sh.items()}
-    perm = kv_order(cfg, m)
     col.label_mesh(mesh)
     dg, dsize, drank = col.data_group(mesh), data_size(mesh), data_rank(mesh)
     depth = _depths(specs)
@@ -110,8 +128,9 @@ def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
     with torch.no_grad():
         for name, p in model.params().items():
             full = p.data
-            if _is_kv(name) and perm is not None:
-                full = full[:, perm.to(full.device)]
+            order = leaf_order(cfg, m, name)
+            if order is not None:
+                full = full[..., order.to(full.device)]
             p.data = place(full, mesh, sh[name])
             split = data_dim(sh[name], mesh)
             p.fsdp = DataBlock(split, dg, dsize, drank) \
@@ -135,13 +154,9 @@ def place_model(model, mesh, layout_mode: str = "coswitch") -> None:
     model.mesh = mesh
     model.tp = TensorParallel(mesh.get_group("model"), m,
                               mesh.get_local_rank("model"),
-                              attn_sharded=perm is not None, split=split)
+                              attn_sharded=kv_order(cfg, m) is not None,
+                              split=split)
     model.hook = hook
-
-
-def _kv_inverse(cfg, m: int) -> Optional[torch.Tensor]:
-    perm = kv_order(cfg, m)
-    return None if perm is None else torch.argsort(perm)
 
 
 def full_named(model, local: Mapping[str, torch.Tensor],
@@ -154,7 +169,7 @@ def full_named(model, local: Mapping[str, torch.Tensor],
     if mesh is None:
         return dict(local)
     table = model.placement["state" if state else "params"]
-    inv = _kv_inverse(model.cfg, axis_sizes(mesh)["model"])
+    m = axis_sizes(mesh)["model"]
     out = {}
     for name in model.params():
         spec = table[name]
@@ -167,8 +182,9 @@ def full_named(model, local: Mapping[str, torch.Tensor],
         for n, t in zip(names, every.unbind(0)):
             out[n] = gather(t, mesh, tuple(table[n][1:]))
     for name, full in out.items():
-        if _is_kv(name) and inv is not None:
-            out[name] = full[:, inv.to(full.device)]
+        order = leaf_order(model.cfg, m, name)
+        if order is not None:
+            out[name] = full[..., torch.argsort(order).to(full.device)]
     return {n: out[n] for n in model.params() if n in out}
 
 
@@ -181,12 +197,13 @@ def local_named(model, full: Mapping[str, torch.Tensor],
     if mesh is None:
         return dict(full)
     table = model.placement["state" if state else "params"]
-    perm = kv_order(model.cfg, axis_sizes(mesh)["model"])
+    m = axis_sizes(mesh)["model"]
     params = model.params()
     out = {}
     for name, t in full.items():
-        if _is_kv(name) and perm is not None:
-            t = t[:, perm.to(t.device)]
+        order = leaf_order(model.cfg, m, name)
+        if order is not None:
+            t = t[..., order.to(t.device)]
         spec = table[name]
         if isinstance(spec, LayerSharded):
             if params[name].zero1.owns:

@@ -293,7 +293,8 @@ class TensorParallel:
         from repro_torch.distributed import collectives as col
         if not self.on or w.shape[dim] == size:
             return w
-        return col.all_gather(w, dim, self.group, replicated=True)
+        return col.all_gather(w, dim, self.group, replicated=True,
+                              contiguous=False)
 
     def whole(self, w: torch.Tensor, dim: int, size: int) -> torch.Tensor:
         """A weight gathered whole for this rank's share of the work (its
@@ -306,7 +307,7 @@ class TensorParallel:
             return w
         if w.shape[dim] == size:
             return self.local(w)
-        return col.all_gather(w, dim, self.group)
+        return col.all_gather(w, dim, self.group, contiguous=False)
 
     def seq_split(self, T: int) -> bool:
         """Whether attention over ``T`` positions splits its queries by
@@ -341,7 +342,8 @@ class Whole:
                 v = Whole(v)
             elif getattr(v, "fsdp", None) is not None:
                 from repro_torch.distributed import collectives as col
-                v = col.all_gather(v, v.fsdp.dim, v.fsdp.group)
+                v = col.all_gather(v, v.fsdp.dim, v.fsdp.group,
+                                   contiguous=False)
             self._cache[name] = v
         return self._cache[name]
 

@@ -10,6 +10,16 @@ the port's layer loop takes a Python ``if``.  The cache holds the backbone
 states with a leading layer axis and one K/V cache per invocation of the
 shared block, ``attn_k``/``attn_v`` of ``(n_invocations, B, S, Hkv, dh)``;
 ``decode_step`` writes invocation ``i // k``'s in place.
+
+Under a mesh (``distributed.stepfn.place_model``) the backbone's Mamba2
+mixers are tensor-parallel over SSM heads (``ssm.mamba2_train``), the
+embedding and the carried ``x0`` are in the stream's layout, and the
+shared block runs on the model group: ``concat_proj`` column-parallel
+(``repro``'s ``P(None, "model")``) on concat(x, x0), its output columns
+all-gathered and handed to the stream's layout (``_concat_proj``);
+attention and the MLP with the dense rules (heads, or the sequence where
+the heads do not divide the group), each invocation's
+``attn_k``/``attn_v`` as ``cache_shardings`` places them.
 """
 from __future__ import annotations
 
@@ -19,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .blocks import attn_decode, attn_train, dtype_of, mlp_apply
-from .common import ParamModule, SpecTree, apply_norm, dense
+from .common import NO_TP, ParamModule, SpecTree, TensorParallel, dense
 from .lm import LMModel, shared_specs
 from .ssm import mamba2_train
 
@@ -43,38 +53,60 @@ class HybridModel(LMModel):
         return out
 
     # ---------------------------------------------------------------- forward
-    def _shared_train(self, x: torch.Tensor, x0: torch.Tensor
-                      ) -> torch.Tensor:
+    def _concat_proj(self, x: torch.Tensor, x0: torch.Tensor,
+                     tp: TensorParallel = NO_TP) -> torch.Tensor:
+        """``concat(x, x0) @ concat_proj`` in the stream's layout.  Under a
+        mesh the weight's columns are split over the model group: the
+        product reads the stream as a column-parallel one does
+        (``tp.enter``), its (..., D/m) output columns are all-gathered
+        (the backward keeps each rank's own columns of the gradient) and
+        the whole result goes to the stream's layout."""
+        w = self.shared["concat_proj"]
+        if not tp.on:
+            return dense(torch.cat([x, x0], dim=-1), w)
+        from repro_torch.distributed import collectives as col
+        h = dense(tp.enter(torch.cat([x, x0], dim=-1)), w)
+        h = col.all_gather(h, h.dim() - 1, tp.group, replicated=True)
+        return tp.from_replicated(h)
+
+    def _shared_train(self, x: torch.Tensor, x0: torch.Tensor,
+                      tp: TensorParallel = NO_TP) -> torch.Tensor:
         sp = self.shared
-        h = dense(torch.cat([x, x0], dim=-1), sp["concat_proj"])
-        h = h + attn_train(self.cfg, sp["attn"], h)
-        h = h + mlp_apply(self.cfg, sp["ffn"], h)
+        h = self._concat_proj(x, x0, tp)
+        h = h + attn_train(self.cfg, sp["attn"], h, tp=tp)
+        h = h + mlp_apply(self.cfg, sp["ffn"], h, tp)
         return h
 
     def _hybrid_layer(self, x: torch.Tensor, x0: torch.Tensor,
-                      layer: ParamModule, with_attn: bool) -> torch.Tensor:
-        x = x + mamba2_train(self.cfg, layer["mixer"], x)
+                      layer: ParamModule, with_attn: bool,
+                      tp: TensorParallel = NO_TP) -> torch.Tensor:
+        x = x + mamba2_train(self.cfg, layer["mixer"], x, tp)
         if with_attn:
-            x = x + self._shared_train(x, x0)
+            x = x + self._shared_train(x, x0, tp)
         return x
 
     def hidden_states(self, tokens: torch.Tensor, remat: bool = True
                       ) -> torch.Tensor:
-        """tokens: (B, T) -> final hidden (B, T, D); each backbone layer
-        (with the shared block where it follows) under
-        ``torch.utils.checkpoint`` where autograd records and ``remat``."""
+        """tokens: (B, T) -> final hidden (B, T, D) (under a mesh in the
+        stream's layout of a T-position call); each backbone layer (with
+        the shared block where it follows) under
+        ``torch.utils.checkpoint`` where autograd records and ``remat``.
+        Whether a layer runs the shared block depends on its index alone,
+        so every rank runs (and the recompute replays) the same
+        collectives."""
         k = self.cfg.shared_attn_every
-        x0 = self._embed(tokens)
+        tp = self._tp_for(tokens.shape[1])
+        x0 = self._embed(tokens, tp)
         x = x0
         remat = remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.layers):
             with_attn = (i + 1) % k == 0
             if remat:
                 x = checkpoint(self._hybrid_layer, x, x0, layer, with_attn,
-                               use_reentrant=False)
+                               tp, use_reentrant=False)
             else:
-                x = self._hybrid_layer(x, x0, layer, with_attn)
-        return apply_norm(self.cfg.norm, x, self.top.final_norm)
+                x = self._hybrid_layer(x, x0, layer, with_attn, tp)
+        return tp.norm(self.cfg.norm, x, self._top("final_norm"))
 
     # ---------------------------------------------------------------- serving
     def cache_specs(self, batch: int, max_seq: int) -> SpecTree:
@@ -95,23 +127,26 @@ class HybridModel(LMModel):
         returns it, where the JAX version returns a new cache."""
         cfg = self.cfg
         k = cfg.shared_attn_every
-        x0 = self._embed(tokens)
+        tp = self.tp.with_seq(False) if self.mesh is not None else NO_TP
+        x0 = self._embed(tokens, tp)
         x = x0
         length = self._rows(cache["length"])
         sp = self.shared
+        split = self.kv_split.get("attn_k", False)
         for i, layer in enumerate(self.layers):
             x = x + self._mixer_decode(i, layer["mixer"], x, cache["layers"],
-                                       length)
+                                       length, tp)
             if (i + 1) % k == 0:
                 inv = i // k
-                h = dense(torch.cat([x, x0], dim=-1), sp["concat_proj"])
+                h = self._concat_proj(x, x0, tp)
                 d, _, _ = attn_decode(cfg, sp["attn"], h, cache["attn_k"][inv],
-                                      cache["attn_v"][inv], length)
+                                      cache["attn_v"][inv], length, tp=tp,
+                                      seq_split=split)
                 h = h + d
-                h = h + mlp_apply(cfg, sp["ffn"], h[:, None])[:, 0]
+                h = h + mlp_apply(cfg, sp["ffn"], h[:, None], tp)[:, 0]
                 x = x + h
-        x = apply_norm(cfg.norm, x, self.top.final_norm)
-        logits = self.logits(x)
+        x = tp.norm(cfg.norm, x, self._top("final_norm"))
+        logits = self._logits_out(x, tp)
         cache["length"].add_(1)
         return cache, logits
 
@@ -120,10 +155,16 @@ class HybridModel(LMModel):
         """tokens: (B, T) -> (cache, last-position logits (B, V)).  Runs
         the chunked train path for the logits and leaves every state and
         K/V cache at zero with ``length = T``, exactly as the JAX version
-        does (both engines scan the prompt in through ``decode_step``)."""
+        does (both engines scan the prompt in through ``decode_step``).
+        Under a mesh ``tokens`` are this data rank's rows, the cache is in
+        its local layout and the logits are over the whole vocabulary."""
         B, T = tokens.shape
         hidden = self.hidden_states(tokens, remat=False)
-        logits = self.logits(hidden[:, -1])
+        if self.mesh is None:
+            logits = self.logits(hidden[:, -1])
+        else:
+            last = self._tp_for(T).to_replicated(hidden)[:, -1]
+            logits = self._logits_out(last, self.tp.with_seq(False))
         cache = self.init_cache(B, max_seq)
         cache["length"].fill_(T)
         return cache, logits

@@ -23,8 +23,9 @@ f32}, "length"}`` for mamba2.  Parameters are built without gradients
 
 Under a mesh (``mesh``, set with the tensor-parallel context ``tp`` and
 the layer-boundary ``hook`` by ``distributed.stepfn.place_model``, which
-also swaps each parameter for its local shard) the dense, MoE and rwkv6
-stacks run tensor-parallel: the embedding is vocab-parallel (a masked
+also swaps each parameter for its local shard) the dense, MoE, rwkv6 and
+mamba2 stacks (and the hybrid, ``hybrid.py``) run tensor-parallel: the
+embedding is vocab-parallel (a masked
 lookup, then an all-reduce, or a reduce-scatter along T into a
 sequence-sharded stream), the head is vocab-parallel (logits ``(...,
 V/m)``) and the loss runs on the vocab-sharded logits; the MoE block is
@@ -267,7 +268,7 @@ class LMModel(nn.Module):
         if _is_rwkv(self.cfg):
             return rwkv6_train(self.cfg, p, x, tp)
         if _is_mamba2(self.cfg):
-            return mamba2_train(self.cfg, p, x)
+            return mamba2_train(self.cfg, p, x, tp)
         return attn_train(self.cfg, p, x, tp=tp)
 
     def _ffn(self, layer: ParamModule, x: torch.Tensor,
@@ -397,7 +398,7 @@ class LMModel(nn.Module):
             if _is_rwkv(self.cfg):
                 delta, new = rwkv6_decode(self.cfg, p, x, layer_cache, tp)
             else:
-                delta, new = mamba2_decode(self.cfg, p, x, layer_cache)
+                delta, new = mamba2_decode(self.cfg, p, x, layer_cache, tp)
             for n, c in caches.items():
                 c[i].copy_(new[n])
             return delta

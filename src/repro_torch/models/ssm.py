@@ -10,13 +10,24 @@ across the heads; the JAX code broadcasts them to the scan's per-head
 operands, and so does the port, made contiguous, since the kernel takes
 contiguous operands (the log decay stays f32, as the kernel asks).
 
-Under a mesh RWKV6 is tensor-parallel over heads (a ``TensorParallel``
-context, ``tp``): ``wr``/``wk``/``wv``/``wg`` column-parallel, ``w0``,
-``u`` and the decode state ``(B, H/m, dk, dv)`` local, the scan on the
-local heads; the decay LoRA's ``w1`` column-parallel over its rank-64
-hidden and ``w2`` row-parallel, reduce-scattered onto the local heads'
-channels; ``ln_x``, an rmsnorm over the whole ``di``, sums its squares
-over the group; ``wo`` row-parallel.  Mamba2 runs on one device only.
+Under a mesh both mixers are tensor-parallel over heads (a
+``TensorParallel`` context, ``tp``).  RWKV6: ``wr``/``wk``/``wv``/``wg``
+column-parallel, ``w0``, ``u`` and the decode state ``(B, H/m, dk, dv)``
+local, the scan on the local heads; the decay LoRA's ``w1``
+column-parallel over its rank-64 hidden and ``w2`` row-parallel,
+reduce-scattered onto the local heads' channels; ``ln_x``, an rmsnorm
+over the whole ``di``, sums its squares over the group
+(``_group_rmsnorm``); ``wo`` row-parallel.  Mamba2: the packed
+``in_proj`` column-parallel on the rank's block (placed in
+``sharding.ssm_order``: its heads' z and x columns, its ``state/m``
+slices of B and C, its heads' dt), the depthwise conv on the rank's
+channels (no collective), B and C all-gathered along channels (every
+rank's heads read all of them, so the backward reduce-scatters their
+gradients), ``dt``/``A_log``/``D_skip``/``dt_bias`` and the decode state
+``(B, H/m, state, hd)`` local, the scan on the local heads, ``out_norm``
+over the whole ``di`` as RWKV6's ``ln_x``, ``out_proj`` row-parallel; the
+decode conv window ``(B, W-1, (di + 2 state)/m)`` holds the rank's
+channels.
 """
 from __future__ import annotations
 
@@ -63,14 +74,43 @@ def mamba2_specs(cfg: ArchConfig) -> SpecTree:
     }
 
 
-def _mamba2_project(cfg: ArchConfig, p, x: torch.Tensor):
-    di, state, heads, _ = _dims(cfg)
-    h = apply_norm(cfg.norm, x, p["norm"])
+def _mamba2_local(cfg: ArchConfig, tp: TensorParallel
+                  ) -> Tuple[int, int, int, int]:
+    """(channels, state, heads, headdim) of this rank's block: ``di``,
+    ``state`` and the heads over the group's size."""
+    di, state, heads, headdim = _dims(cfg)
+    m = tp.size if tp.on else 1
+    return di // m, state // m, heads // m, headdim
+
+
+def _mamba2_project(cfg: ArchConfig, p, h: torch.Tensor,
+                    tp: TensorParallel = NO_TP):
+    """z, the conv's input (x | B | C) and dt of the normed ``h``, of this
+    rank's block of ``in_proj``'s columns (all of them on one device)."""
+    di, state, heads, _ = _mamba2_local(cfg, tp)
     zxbcdt = dense(h, p["in_proj"])
     z = zxbcdt[..., :di]
     xbc = zxbcdt[..., di:di + di + 2 * state]
     dt_raw = zxbcdt[..., -heads:]
     return z, xbc, dt_raw
+
+
+def _mamba2_bc(cfg: ArchConfig, xbc: torch.Tensor, tp: TensorParallel
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B and C (..., state) whole from the conv's output on this rank's
+    channels: under a mesh each rank holds a ``state/m`` slice of each,
+    gathered in one all-gather along channels whose backward
+    reduce-scatters (every rank's heads read all of B and C, so each
+    rank's gradient of them is its heads' share of the sum)."""
+    di, state, _, _ = _mamba2_local(cfg, tp)
+    b, c = xbc[..., di:di + state], xbc[..., di + state:]
+    if not tp.on:
+        return b, c
+    from repro_torch.distributed import collectives as col
+    bc = torch.stack([b, c], dim=-2).unsqueeze(-2)    # (..., 2, 1, s/m)
+    bc = col.all_gather(bc, bc.dim() - 2, tp.group)  # (..., 2, m, s/m)
+    bc = bc.flatten(-2)
+    return bc[..., 0, :], bc[..., 1, :]
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
@@ -85,16 +125,19 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return F.silu(out + b)
 
 
-def mamba2_train(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
-    """x: (B, T, D) -> (B, T, D) residual delta, the chunked SSD scan
-    through ``ops.linear_scan``."""
-    B, T, D = x.shape
-    di, state, heads, headdim = _dims(cfg)
-    z, xbc, dt_raw = _mamba2_project(cfg, p, x)
+def mamba2_train(cfg: ArchConfig, p, x: torch.Tensor,
+                 tp: TensorParallel = NO_TP) -> torch.Tensor:
+    """x: (B, T, D) -> (B, T, D) residual delta (in the stream's layout
+    under a mesh), the chunked SSD scan through ``ops.linear_scan`` on this
+    rank's heads."""
+    di, _, heads, headdim = _mamba2_local(cfg, tp)
+    state = _dims(cfg)[1]
+    h = tp.enter(tp.norm(cfg.norm, x, p["norm"]))
+    B, T, D = h.shape
+    z, xbc, dt_raw = _mamba2_project(cfg, p, h, tp)
     xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
     xs = xbc[..., :di].reshape(B, T, heads, headdim)
-    Bmat = xbc[..., di:di + state]                      # (B, T, state)
-    Cmat = xbc[..., di + state:]                        # (B, T, state)
+    Bmat, Cmat = _mamba2_bc(cfg, xbc, tp)               # (B, T, state)
     dt = F.softplus(dt_raw.float() + p["dt_bias"])      # (B, T, heads)
     A = -torch.exp(p["A_log"])                          # (heads,) negative
     dt_h = dt.transpose(1, 2)[..., None]                # (B, heads, T, 1)
@@ -106,8 +149,8 @@ def mamba2_train(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     y = ops.linear_scan(q, k, v, log_decay)
     y = y + v * p["D_skip"][None, :, None, None].to(x.dtype)
     y = y.transpose(1, 2).reshape(B, T, di)
-    y = apply_norm("rmsnorm", y * F.silu(z), p["out_norm"])
-    return dense(y, p["out_proj"])
+    y = _group_rmsnorm(cfg, p["out_norm"], y * F.silu(z), tp)
+    return tp.exit(dense(y, p["out_proj"]))
 
 
 def mamba2_cache_specs(cfg: ArchConfig, batch: int) -> SpecTree:
@@ -117,22 +160,24 @@ def mamba2_cache_specs(cfg: ArchConfig, batch: int) -> SpecTree:
             "ssm": ((batch, heads, state, headdim), torch.float32)}
 
 
-def mamba2_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict
-                  ) -> Tuple[torch.Tensor, Dict]:
+def mamba2_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict,
+                  tp: TensorParallel = NO_TP) -> Tuple[torch.Tensor, Dict]:
     """One step.  x: (B, D); cache: {conv (B, W-1, C) in the model dtype,
     ssm (B, H, state, hd) f32}.  Returns (residual delta (B, D), new
     cache), as the JAX version does; the model writes the new cache into
-    its own in place."""
+    its own in place.  Under a mesh the cache holds this rank's channels
+    (B, W-1, C/m) of the conv window and its heads (B, H/m, state, hd) of
+    the state, as ``cache_shardings`` places them."""
     B, D = x.shape
-    di, state, heads, headdim = _dims(cfg)
-    z, xbc, dt_raw = _mamba2_project(cfg, p, x[:, None, :])
+    di, _, heads, headdim = _mamba2_local(cfg, tp)
+    hn = tp.enter(apply_norm(cfg.norm, x, p["norm"]))
+    z, xbc, dt_raw = _mamba2_project(cfg, p, hn[:, None, :], tp)
     z, xbc, dt_raw = z[:, 0], xbc[:, 0], dt_raw[:, 0]
     window = torch.cat([cache["conv"], xbc[:, None, :]], dim=1)
     conv = F.silu(torch.einsum("bwc,wc->bc", window, p["conv_w"])
                   + p["conv_b"])
     xs = conv[..., :di].reshape(B, heads, headdim)
-    Bv = conv[..., di:di + state]
-    Cv = conv[..., di + state:]
+    Bv, Cv = _mamba2_bc(cfg, conv, tp)
     dtv = F.softplus(dt_raw.float() + p["dt_bias"])    # (B, heads)
     A = -torch.exp(p["A_log"])
     decay = torch.exp(dtv * A)
@@ -142,8 +187,9 @@ def mamba2_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict
     y = torch.einsum("bhsd,bs->bhd", h, Cv.float())
     y = y.to(x.dtype) + xs * p["D_skip"][None, :, None].to(x.dtype)
     y = y.reshape(B, di)
-    y = apply_norm("rmsnorm", y * F.silu(z), p["out_norm"])
-    return dense(y, p["out_proj"]), {"conv": window[:, 1:], "ssm": h}
+    y = _group_rmsnorm(cfg, p["out_norm"], y * F.silu(z), tp)
+    return tp.exit(dense(y, p["out_proj"])), {"conv": window[:, 1:],
+                                              "ssm": h}
 
 
 # ----------------------------------------------------------------------- rwkv6
@@ -177,7 +223,7 @@ def _rwkv6_project(cfg: ArchConfig, p, x: torch.Tensor,
     mu = p["mu"]
     if "mu" in tp.split:
         from repro_torch.distributed import collectives as col
-        mu = col.all_gather(mu, 1, tp.group)
+        mu = col.all_gather(mu, 1, tp.group, contiguous=False)
     else:
         mu = tp.local(mu)
     mixed = [x + (x_prev - x) * mu[i] for i in range(5)]
@@ -193,19 +239,21 @@ def _rwkv6_project(cfg: ArchConfig, p, x: torch.Tensor,
     return r, k, v, logw, g
 
 
-def _ln_x(cfg: ArchConfig, p, y: torch.Tensor, tp: TensorParallel
-          ) -> torch.Tensor:
-    """The rmsnorm over all of ``di`` on this rank's channels of it: the
-    mean square summed over the group."""
+def _group_rmsnorm(cfg: ArchConfig, norm, y: torch.Tensor,
+                   tp: TensorParallel) -> torch.Tensor:
+    """The rmsnorm over all of ``di`` (``norm``: its replicated weight,
+    RWKV6's ``ln_x``, Mamba2's ``out_norm``) on this rank's channels of
+    it: the mean square summed over the group, the weight narrowed to the
+    rank's channels (its gradient summed over the group)."""
     if not tp.on:
-        return apply_norm("rmsnorm", y, p["ln_x"])
+        return apply_norm("rmsnorm", y, norm)
     from repro_torch.distributed import collectives as col
     di = _dims(cfg)[0]
     n = y.shape[-1]
     y32 = y.float()
     part = torch.mean(y32 * y32, dim=-1, keepdim=True) * (n / di)
     var = col.copy(col.all_reduce(part, tp.group), tp.group)
-    w = tp.local(p["ln_x"]["w"]).narrow(0, tp.rank * n, n)
+    w = tp.local(norm["w"]).narrow(0, tp.rank * n, n)
     return (y32 * torch.rsqrt(var + 1e-5)).to(y.dtype) * w
 
 
@@ -248,7 +296,7 @@ def rwkv6_train(cfg: ArchConfig, p, x: torch.Tensor,
     bonus = torch.sum(rh * u[None, :, None, :].to(x.dtype) * kh, dim=-1,
                       keepdim=True) * vh
     y = (y + bonus).transpose(1, 2).reshape(B, T, di)
-    y = _ln_x(cfg, p, y, tp) * g
+    y = _group_rmsnorm(cfg, p["ln_x"], y, tp) * g
     return tp.exit(dense(y, p["wo"]))
 
 
@@ -286,7 +334,7 @@ def rwkv6_decode(cfg: ArchConfig, p, x: torch.Tensor, cache: Dict,
     y = torch.einsum("bhk,bhkd->bhd", rh.float(), wkv)
     new_state = cache["state"] * wh[..., :, None] + kv
     y = y.to(x.dtype).reshape(B, di)
-    y = _ln_x(cfg, p, y, tp) * g
+    y = _group_rmsnorm(cfg, p["ln_x"], y, tp) * g
     new_prev = h
     if tp.on:
         from repro_torch.distributed import collectives as col

@@ -11,14 +11,17 @@
 * Per-device argument bytes of the dry-run on a fake world of 8 equal
   ``repro``'s ``memory_analysis().argument_size_in_bytes`` of its compiled
   step on 8 host devices: SMOKE llama, dbrx (train) and phi3 (decode) on
-  (2, 4), SMOKE rwkv6 (train) on (4, 2) (its 2 heads do not split over a
-  model axis of 4, which the port refuses for rwkv6).
+  (2, 4), SMOKE rwkv6 and zamba2 (train) on (4, 2) (their 2 heads do not
+  split over a model axis of 4, which the port refuses for both mixers;
+  zamba2's mamba2 leaves placed in ``ssm_order``, its conv leaves' ZeRO-1
+  state on ``repro``'s layer axis).
 * The matmul FLOPs of SMOKE llama's train and decode steps on one device
   are within 10% of ``repro.core.hlo_cost.analyze_hlo``'s.
 * The CLI writes a cell's record (llama3.2-3b ``decode_32k``, whose cache
   is split by sequence: under 100 MB of collectives a device a step, on
-  the last model rank), and a cell that needs item 10b (b) raises naming
-  it.
+  the last model rank; zamba2-2.7b ``decode_32k``, its mamba2 mixers on 5
+  of the 80 SSM heads a rank, one ``gqa_decode`` a shared-block
+  invocation).
 * ``gpu_cost`` prices an axis whose groups span nodes of 8 cards at the
   NIC's rate and one whose groups stay inside a node at NVLink's.
 * ``launch.roofline`` reads the fake world's records into rows.
@@ -236,7 +239,8 @@ print(json.dumps(r))
 
 ARG_CASES = [("llama3p2_3b", "train", (2, 4)), ("dbrx_132b", "train", (2, 4)),
              ("phi3_mini_3p8b", "decode", (2, 4)),
-             ("rwkv6_1p6b", "train", (4, 2))]
+             ("rwkv6_1p6b", "train", (4, 2)),
+             ("zamba2_2p7b", "train", (4, 2))]
 
 
 def _env(**extra):
@@ -341,11 +345,13 @@ def test_dryrun_flops_near_repro_hlo(kind):
 
 # ------------------------------------------------------------------ CLI
 def test_dryrun_cli(tmp_path):
-    """A cell that traces writes its record; one that needs item 10b (b)
-    (mamba2 tensor parallelism) exits non-zero naming it.  llama3.2-3b's
-    8 KV heads do not divide 16: its ``decode_32k`` cell traces the cache
-    split by sequence on the last model rank, one ``gqa_decode_partial``
-    a layer, under 100 MB of collectives a device a step."""
+    """A cell that traces writes its record.  llama3.2-3b's 8 KV heads do
+    not divide 16: its ``decode_32k`` cell traces the cache split by
+    sequence on the last model rank, one ``gqa_decode_partial`` a layer,
+    under 100 MB of collectives a device a step.  zamba2-2.7b's
+    ``decode_32k`` runs its 54 mamba2 mixers tensor-parallel over the 16
+    model ranks and its shared block 9 times: 9 ``gqa_decode`` calls a
+    step, and the mixers' B/C gathers over the model axis."""
     out = tmp_path / "phi3.json"
     ok = subprocess.run(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
@@ -371,12 +377,18 @@ def test_dryrun_cli(tmp_path):
         "calls": 28, **{k: rec["kernels"]["gqa_decode_partial"][k]
                         for k in ("flops", "bytes")}}}
     assert 0 < rec["collective_bytes_per_device"] < 100e6
-    bad = subprocess.run(
+    out = tmp_path / "zamba2.json"
+    hybrid = subprocess.run(
         [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun",
-         "--arch", "zamba2_2p7b", "--shape", "decode_32k"], env=_env(),
-        cwd=str(tmp_path), capture_output=True, text=True, timeout=600)
-    assert bad.returncode != 0
-    assert "NotImplementedError" in bad.stderr and "item 10b" in bad.stderr
+         "--arch", "zamba2_2p7b", "--shape", "decode_32k", "--out",
+         str(out)], env=_env(), cwd=str(tmp_path), capture_output=True,
+        text=True, timeout=600)
+    assert hybrid.returncode == 0, hybrid.stderr[-3000:]
+    rec = json.loads(out.read_text())
+    assert rec["mesh"] == "16x16" and rec["chips"] == 256
+    assert set(rec["kernels"]) == {"gqa_decode"}
+    assert rec["kernels"]["gqa_decode"]["calls"] == 9
+    assert rec["collective_kinds"]["all_gather"]["model"] > 0
 
 
 LINKS = [({"data": 16, "model": 16}, {"data": "nic", "model": "nic"}),

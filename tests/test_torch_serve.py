@@ -249,6 +249,14 @@ names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
     repro_torch.__path__, "repro_torch.")]
 for n in names:
     importlib.import_module(n)
+import importlib.util, pathlib
+root = pathlib.Path(repro_torch.__file__).resolve().parents[2]
+for rel in ("examples/quickstart_torch.py", "examples/serve_lm_torch.py",
+            "examples/train_lm_torch.py", "benchmarks/serve_bench_torch.py"):
+    spec = importlib.util.spec_from_file_location(
+        pathlib.Path(rel).stem, root / rel)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    names.append(rel)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
@@ -282,7 +290,9 @@ for mod in ("repro_torch.kernels.rir_matmul", "repro_torch.kernels.gqa_decode",
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Every port module imports with neither jax nor the JAX package."""
+    """Every port module, the port's examples (``examples/*_torch.py``) and
+    its serve benchmark (``benchmarks/serve_bench_torch.py``) import with
+    neither jax nor the JAX package."""
     import os
     env = dict(os.environ)
     src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")

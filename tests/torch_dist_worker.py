@@ -73,9 +73,10 @@ class clip_seen:
 def train(mesh, arch, params, tokens, mode, steps=1, frames=None,
           variant=False):
     """Losses, the first step's gradients as the optimiser gets them
-    (gathered whole) and the global norm its clip computed, and the whole
+    (gathered whole) and the global norm its clip computed, the whole
     updated parameters after ``steps`` steps (an encoder-decoder's batch
-    with ``frames``)."""
+    with ``frames``), how many leaves have a ZeRO-1 block and which
+    ``repro`` leaves ZeRO-1 splits on the layer axis."""
     from repro_torch import api
     from repro_torch.distributed import collectives as col
     from repro_torch.distributed.stepfn import full_named
@@ -98,7 +99,10 @@ def train(mesh, arch, params, tokens, mode, steps=1, frames=None,
     return {"losses": losses, "calls": calls, "gnorm": gnorm,
             "grads": {k: v.numpy() for k, v in
                       full_named(model, grads, state=True).items()},
-            "params": {k: v.numpy() for k, v in full.items()}}
+            "params": {k: v.numpy() for k, v in full.items()},
+            "zero1": sum(p.zero1 is not None
+                         for p in model.params().values()),
+            "layer_sharded": sorted(model.placement["layers"])}
 
 
 class sharding_as:
@@ -333,8 +337,9 @@ def save(mesh, arch, params, directory):
     tensors, rank 0 writing, ``repro``'s sharding strings) of a model
     placed on the mesh and ``train_state`` at ``directory/step_00000003``;
     then the trainer's resume (``restore_into``) into that model and state
-    zeroed: whether every restored block (``wkv``'s, in its KV-head order,
-    included) equals the one saved."""
+    zeroed: whether every restored block (``wkv``'s in its KV-head order
+    and a mamba2 mixer's ``in_proj``, ``conv_w`` and ``conv_b`` in their
+    SSM-head order included) equals the one saved."""
     import pathlib
 
     from repro_torch.checkpoint import CheckpointManager
@@ -366,7 +371,9 @@ def save(mesh, arch, params, directory):
             for k in want for n in want[k]]
     return {"step": step, "opt_step": opt.step,
             "restored_blocks_equal": all(same), "checked": len(same),
-            "kv_checked": sum(n.endswith("wkv") for n in want["params"])}
+            "kv_checked": sum(n.endswith("wkv") for n in want["params"]),
+            "ssm_checked": sum(n.endswith(("in_proj", "conv_w", "conv_b"))
+                               for n in want["params"])}
 
 
 def refuse(mesh, arch):
