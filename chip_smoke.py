@@ -247,6 +247,32 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     sequential ones and at least 1.5x sequential throughput, or the run
     fails.
 
+27. The dense, MoE and encoder-decoder families trained on the card, one
+    after the other (each freed before the next): ``make_train_step``
+    with the WSD schedule over ``SyntheticLMStream`` (bf16 weights from a
+    seed, f32 AdamW) for 4 steps at full width, one more profiled (busy
+    share, device time by kernel and under ``adamw.update``):
+    llama3.2-3b at full depth (8 x 1024), dbrx-132b and llama4-scout cut
+    to 1 layer and 8 of 16 experts (every width, top-k, capacity factor
+    and the shared expert kept; weights at 10x the init, where zeroing the
+    experts' ``wd`` must move the first loss; llama4-scout's top-1 router
+    gets no gradient, dbrx's one in every layer), whisper-small at full
+    size on stub frames (8 x 448); falling finite losses, step ms,
+    tokens/s, peak memory beside its split, the share of bf16 peak, each
+    MoE step's capacity and drops.  The first step again from the same
+    weights, every gradient bit for bit (64-bit hashes of their bits);
+    dbrx (expert-parallel) and whisper for 3 steps on the one-rank NCCL
+    mesh in both layout modes, losses and gradients bit for bit one
+    device's.  The trained MoE models and whisper served through
+    ``ServeEngine(weights=...)`` (B 8, prompt 128, whisper 64, gen 16:
+    ``gqa_decode`` launched n_layers times a step, 24 for whisper), held
+    against the same model with ``ref.gqa_decode`` in the kernel's place,
+    and each MoE layer's prefill drops at the init weights and trained.
+    Then each config in f32 (TF32 off) card against CPU (llama widths at 2
+    layers, whisper at 2 + 2 over 1500 frames, both MoE configs at full
+    width, 1 layer, 8 experts; and at SMOKE widths with capacity factor
+    0.5, where dispatch drops): the loss and every gradient within 2e-4.
+
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
 exits non-zero and prints no result.  TF32 is switched off for PyTorch's
@@ -255,6 +281,7 @@ matmul and cuDNN, so every float32 comparison is float32 on both sides.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -463,6 +490,48 @@ HYBRID_SCAN_EFFECT = 100 * MESH_TRAIN_REL
 RANK_SCAN_AXES = (16, 2)     # zamba2's 80 SSM heads: 5 and 40 a rank
 SERVE_GATE_ARGS = ["--graph", "resnet50", "--requests", "32",
                    "--max-batch", "8"]
+# phase 27: the dense, MoE and encoder-decoder families trained on the card
+# at full width, one after the other; the MoE configs cut to one layer and
+# 8 of their 16 experts (every width, top_k, capacity_factor and the
+# shared expert kept): 16 B a parameter of weights, gradients and f32
+# AdamW state plus clip_by_global_norm's f32 copy of every gradient put
+# one layer of 16 experts over 80 GB
+FAMILY_ARCHS = ("llama3p2_3b", "dbrx_132b", "llama4_scout_17b",
+                "whisper_small")
+FAMILY_SMOKE = False
+FAMILY_CUTS = {"dbrx_132b": {"n_layers": 1, "n_experts": 8},
+               "llama4_scout_17b": {"n_layers": 1, "n_experts": 8}}
+FAMILY_BATCH = 8
+FAMILY_SEQ = {"whisper_small": 448}         # its decoder's length; else 1024
+FAMILY_SEQ_DEFAULT = 1024
+FAMILY_STEPS = 4
+FAMILY_SEED = 0
+# the WSD peak (warmup 2, stable 2, decay 1): at phase 11's 2e-3 the MoE
+# models at 10x the init spike (llama4-scout's loss 16.36, 16.35, 14.30,
+# 18.18), though they fall over longer runs; at 5e-4 all four fall by step 3
+FAMILY_LR = 5e-4
+# the MoE models drawn at 10x the 0.02 init, as the tests and the bf16
+# re-anchor draw them (at 0.02 the MoE blocks give 0.0 in bf16): zeroing the
+# experts' wd must move the first loss by FAMILY_EXPERT_EFFECT of it, 100x
+# the limit the mesh holds losses to
+FAMILY_SCALE = {"dbrx_132b": 0.2, "llama4_scout_17b": 0.2}
+FAMILY_EXPERT_EFFECT = 100 * MESH_TRAIN_REL
+FAMILY_MEM_SHARE = 0.9       # of the card's memory, the most a step may peak
+# Part B: f32 card against CPU (TF32 off) at these cuts and batches; both
+# MoE configs again at SMOKE widths with capacity_factor 0.5 (drops)
+FAMILY_F32 = {"llama3p2_3b": ({"n_layers": 2}, 2, 64),
+              "whisper_small": ({"n_layers": 2, "enc_layers": 2}, 2, 32),
+              "dbrx_132b": ({"n_layers": 1, "n_experts": 8}, 2, 64),
+              "llama4_scout_17b": ({"n_layers": 1, "n_experts": 8}, 2, 64)}
+FAMILY_F32_DROP_CF = 0.5
+FAMILY_F32_DROP = (8, 64)                  # B, T at SMOKE widths
+FAMILY_MESH = ("dbrx_132b", "whisper_small")
+FAMILY_MESH_STEPS = 3
+# Part C: the trained MoE models and whisper served through ServeEngine
+FAMILY_SERVE = {"batch": 8, "prompt": 128, "gen": 16}
+FAMILY_SERVE_PROMPT = {"whisper_small": 64}
+# a gradient's bits hashed in chunks of this many 16-bit words
+FP_CHUNK = 1 << 22
 
 
 def log(msg: str) -> None:
@@ -2658,7 +2727,9 @@ def phase_whisper_f32(torch, api, gk) -> dict:
 class MoeRecorder:
     """Wraps ``lm.moe_apply`` while in a ``with``: each call's capacity C,
     its per-expert counts and dropped assignments (from the router on the
-    block's inputs, recomputed), and its top-k ids and router logits."""
+    block's inputs, recomputed without autograd, so a training step's
+    graph and its remat recompute are as without it), and its top-k ids
+    and router logits."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -2669,7 +2740,8 @@ class MoeRecorder:
         self.lm, self.real = lm, lm.moe_apply
 
         def recorded(cfg, p, x):
-            _, logits, (_, idx) = blocks.moe_route(cfg, p, x)
+            with self.torch.no_grad():
+                _, logits, (_, idx) = blocks.moe_route(cfg, p, x)
             N = x.shape[0] * x.shape[1]
             C = blocks.moe_capacity(cfg, N)
             counts = self.torch.bincount(idx.reshape(-1),
@@ -3909,6 +3981,550 @@ def phase_hybrid_mesh(torch, api, ops, ref, gk, lk) -> dict:
             "serve_gate": serve_gate()}
 
 
+# ---------------------------------------------------------------- phase 27
+def family_cfg(api, arch):
+    """``arch``'s config at phase 27's cut (``FAMILY_CUTS``)."""
+    return dataclasses.replace(api.get_config(arch, smoke=FAMILY_SMOKE),
+                               **FAMILY_CUTS.get(arch, {}))
+
+
+def family_init(torch, arch, model):
+    """``model``'s weights from FAMILY_SEED at ``arch``'s FAMILY_SCALE (the
+    same weights at every call)."""
+    return model.init(torch.Generator(device=model.device).manual_seed(
+        FAMILY_SEED), scale=FAMILY_SCALE.get(arch, 0.02))
+
+
+def family_stream(api, cfg, batch, seq):
+    """The synthetic stream, with the stub frames an encoder-decoder's
+    encoder takes (``frames_dim = d_model``, as ``launch.train`` builds
+    it)."""
+    enc = cfg.family == "encdec"
+    return api.SyntheticLMStream(api.DataConfig(
+        vocab=cfg.vocab, global_batch=batch, seq_len=seq,
+        frames_dim=cfg.d_model if enc else 0, frames_len=cfg.enc_frames))
+
+
+def family_seq(arch) -> int:
+    return FAMILY_SEQ.get(arch, FAMILY_SEQ_DEFAULT)
+
+
+@contextlib.contextmanager
+def served_config(arch, cfg):
+    """While in the ``with``, ``repro_torch.configs.get_config`` gives
+    ``cfg`` for ``arch``: ``ServeEngine`` looks its model's config up by
+    name, and a cut model's weights fit only the cut config."""
+    from repro_torch import configs
+    real = configs.get_config
+
+    def cut(name, smoke=False):
+        return cfg if name == arch else real(name, smoke)
+
+    configs.get_config = cut
+    try:
+        yield
+    finally:
+        configs.get_config = real
+
+
+_FP_WEIGHTS = {}
+
+
+def fingerprints(torch, named) -> dict:
+    """Each tensor's bits, hashed on its device: its 16-bit words in
+    chunks of ``FP_CHUNK``, each chunk's words times two fixed rows of
+    random weights in [1, 2^20), summed in int64 (no sum overflows: 2^15 x
+    2^20 x 2^22 < 2^63), one pair of sums a chunk.  Equal tensors give
+    equal sums; a difference in one word changes both sums of its chunk,
+    and several differences cancel in both only by chance (2^-20 each)."""
+    out = {}
+    for name, t in named.items():
+        dev = t.device
+        if dev not in _FP_WEIGHTS:
+            _FP_WEIGHTS[dev] = torch.randint(
+                1, 1 << 20, (2, FP_CHUNK), dtype=torch.int64, device=dev,
+                generator=torch.Generator(device=dev).manual_seed(27))
+        w = _FP_WEIGHTS[dev]
+        words = t.detach().contiguous().reshape(-1).view(torch.int16)
+        out[name] = torch.stack([
+            (c.to(torch.int64)[None] * w[:, :c.numel()]).sum(dim=1)
+            for c in words.split(FP_CHUNK)])
+    return out
+
+
+def prints_differ(got, want) -> list:
+    """The names whose fingerprints differ (or are missing)."""
+    import torch
+    return sorted(n for n in want
+                  if n not in got or not torch.equal(got[n], want[n]))
+
+
+def family_run(torch, api, model, stream, steps, mesh=None, mode=None,
+               moe_at=(), profile=False) -> dict:
+    """``steps`` steps of ``make_train_step`` on ``model`` (one device, or
+    ``mesh`` in layout ``mode``) with the WSD schedule of FAMILY_STEPS
+    steps: the losses, each step's host ms, the fingerprints of every
+    step's gradients as the clip gets them (gathered whole), the first
+    step's router max |g| by layer, the MoE block's forward calls of the
+    steps in ``moe_at`` (``MoeRecorder``: C, dropped assignments), the
+    bytes of the parameters, their gradients and AdamW state; with
+    ``profile`` one more step under ``torch.profiler``: the device's busy
+    share, its time by kernel and under ``adamw.update``."""
+    from repro_torch.distributed import collectives as col
+    from repro_torch.distributed.stepfn import full_named
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import UPDATE_RANGE
+
+    def sched(s):
+        return api.wsd_schedule(s, peak_lr=FAMILY_LR,
+                                warmup=max(2, FAMILY_STEPS // 10),
+                                stable=FAMILY_STEPS // 2,
+                                decay=max(1, FAMILY_STEPS // 3))
+
+    torch.cuda.reset_peak_memory_stats()
+    step = api.make_train_step(model, schedule=sched) if mesh is None else \
+        api.make_train_step(model, mesh, layout_mode=mode, schedule=sched)
+    opt = api.adamw_init(model.params())
+    params = model.params()
+    out = {"losses": [], "step_ms": [], "moe": {}, "prints": [],
+           "router_max_g": {},
+           "param_gb": sum(p.numel() * p.element_size()
+                           for p in params.values()) / 1e9,
+           "state_gb": sum(t.numel() * t.element_size()
+                           for d in (opt.mu, opt.nu, opt.master)
+                           for t in d.values()) / 1e9,
+           "clip_copy_gb": sum(p.numel() * 4 for p in params.values()) / 1e9}
+    clip = adamw.clip_by_global_norm
+    n_moe = model.cfg.n_layers if model.cfg.family == "moe" else 0
+
+    def seen_clip(grads, max_norm, reduce=None):
+        whole = full_named(model, grads, state=True)
+        out["prints"].append(fingerprints(torch, whole))
+        if len(out["prints"]) == 1:
+            out["router_max_g"] = {n: float(g.abs().max())
+                                   for n, g in whole.items()
+                                   if n.endswith(".ffn.router")}
+        return clip(grads, max_norm, reduce)
+
+    adamw.clip_by_global_norm = seen_clip
+    try:
+        col.reset_calls()                          # the path starts
+        for s in range(steps):
+            with contextlib.ExitStack() as stack:
+                rec = stack.enter_context(MoeRecorder(torch)) \
+                    if s in moe_at and n_moe else None
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                opt, m = step(opt, stream.batch_at(s))
+                out["losses"].append(float(m["loss"]))
+                torch.cuda.synchronize()
+                out["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            if rec is not None:                    # the forward's calls
+                out["moe"][s] = [{k: c[k] for k in ("N", "C", "dropped",
+                                                    "max_load")}
+                                 for c in rec.calls[:n_moe]]
+        out["collectives"] = dict(col.CALLS)       # ... and ends here
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if profile:
+            with device_profile() as prof:
+                t0 = time.perf_counter()
+                opt, m = step(opt, stream.batch_at(steps))
+                float(m["loss"])
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            by_name, busy_ms = device_time_by_kernel(prof)
+            upd_ms, upd_n = range_device_ms(prof, UPDATE_RANGE)
+            out["profiled_step"] = {
+                "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+                "device_busy_share": busy_ms / wall_ms,
+                "step_device_split": {
+                    UPDATE_RANGE: {"device_ms": upd_ms, "calls": upd_n},
+                    "rest": {"device_ms": busy_ms - upd_ms}},
+                "device_ops": sum(c for _, _, c in by_name),
+                "top_device_ms": [[name[:60], round(us / 1e3, 4), c]
+                                  for us, name, c in by_name[:10]]}
+            del prof
+    finally:
+        adamw.clip_by_global_norm = clip
+    del step, opt
+    return out
+
+
+def family_serve(torch, api, ops, ref, gk, arch, cfg, model) -> dict:
+    """Part C: ``model`` (trained) loaded into ``ServeEngine(...,
+    weights=...)`` and one batch served (B 8, prompt 128 or whisper's 64,
+    gen 16) through the engine's LM backend, with ``gqa_decode``, then
+    with ``ref.gqa_decode`` in the kernel's place.  Each row is held while
+    both runs have fed it the same tokens: the step's logits within
+    LM_TF_REL x max |logit| and the same greedy token, unless the plain
+    run's top-1/top-2 gap is within twice that step's max |dlogit| (a
+    tie the rounding may break: reported, the row held no further).  For
+    an MoE a row whose routing differs in a step is reported and held no
+    further, as phase 22 does, where the plain run's k-th/(k+1)-th router
+    margin of each such token is within twice the change of its router
+    logits between the runs (the kernel and the plain version round
+    differently in bf16); a routing that differs at a wider margin fails.
+    The router margins under MOE_ROUTE_MARGIN are counted.  Then the MoE
+    layers' dropped assignments of the prefill at the init weights,
+    beside those after training."""
+    import numpy as np
+    B, G = FAMILY_SERVE["batch"], FAMILY_SERVE["gen"]
+    P = FAMILY_SERVE_PROMPT.get(arch, FAMILY_SERVE["prompt"])
+    moe = cfg.family == "moe"
+    L = cfg.n_layers if moe else 0
+    with served_config(arch, cfg):
+        eng = api.ServeEngine(api.ServeConfig(
+            arch=arch, smoke=FAMILY_SMOKE, max_batch=B, prompt_len=P, gen=G,
+            device=DEV, workers=1), weights={
+                n: p.detach() for n, p in model.params().items()})
+    lm_model = eng.model
+    prompts = list(np.random.default_rng(272).integers(0, cfg.vocab, (B, P)))
+
+    def batch():
+        """One batch: its (B, G) tokens, (B, G, V) logits (prefill's last
+        position, then each decode step's) and MoE calls."""
+        lgs = []
+        pre, dec = lm_model.prefill, lm_model.decode_step
+
+        def kept(fn):
+            def call(*a, **k):
+                cache, logits = fn(*a, **k)
+                lgs.append(logits.float())
+                return cache, logits
+            return call
+
+        lm_model.prefill, lm_model.decode_step = kept(pre), kept(dec)
+        try:
+            with MoeRecorder(torch) as r:
+                t0 = time.perf_counter()
+                toks = np.stack(eng._backend.run(None, prompts))
+                s = time.perf_counter() - t0
+        finally:
+            del lm_model.prefill, lm_model.decode_step
+        return toks, torch.stack(lgs, 1).cpu(), r.calls, s
+
+    before = gk.launch_count()
+    toks_k, lg_k, calls_k, batch_s = batch()
+    launches = gk.launch_count() - before
+    real = ops.gqa_decode
+    ops.gqa_decode = ref.gqa_decode
+    try:
+        toks_p, lg_p, calls_p, _ = batch()
+    finally:
+        ops.gqa_decode = real
+    scale = float(lg_p.abs().max())
+
+    def step_calls(calls, j):
+        return calls[L * j:L * (j + 1)]
+
+    def row_tokens(c, b):
+        """Row b's router rows of an MoE call (a prefill call: its P)."""
+        per = c["N"] // B
+        return slice(b * per, (b + 1) * per)
+
+    held_steps, worst, near = 0, 0.0, 0
+    stops = {"routing_flip": [], "logit_tie": []}
+    for b in range(B):
+        for j in range(G):
+            flip = []
+            for ck, cp in zip(step_calls(calls_k, j), step_calls(calls_p, j)):
+                rows = row_tokens(cp, b)
+                lp = cp["logits"][rows]
+                srt = torch.sort(lp, dim=-1, descending=True).values
+                k = min(cfg.top_k, srt.shape[1] - 1)
+                margin = srt[:, k - 1] - srt[:, k]
+                moved = (ck["logits"][rows] - lp).abs().max(dim=-1).values
+                differ = (ck["idx"][rows] != cp["idx"][rows]).any(dim=-1)
+                near += int((margin <= MOE_ROUTE_MARGIN).sum())
+                if bool((differ & (margin > 2 * moved)).any()):
+                    raise AssertionError(f"{arch} served row {b} step {j}: "
+                                         f"routing differs at a margin "
+                                         f"the router logits' change "
+                                         f"cannot cross")
+                flip += [[float(a), float(m)] for a, m in
+                         zip(margin[differ], moved[differ])]
+            if flip:
+                stops["routing_flip"].append({"row": b, "step": j,
+                                              "margin_and_change": flip})
+                break
+            err = max_err(lg_k[b, j], lg_p[b, j])
+            worst = max(worst, err)
+            if not err <= LM_TF_REL * scale:
+                raise AssertionError(f"{arch} served row {b} step {j}: "
+                                     f"max |dlogit| {err:.3e} beyond "
+                                     f"{LM_TF_REL} x {scale:.3e}")
+            held_steps += 1
+            if toks_k[b, j] != toks_p[b, j]:
+                top2 = torch.topk(lg_p[b, j], 2).values
+                if not float(top2[0] - top2[1]) <= 2 * err:
+                    raise AssertionError(f"{arch} served row {b} step {j}: "
+                                         f"tokens differ at a top-2 gap of "
+                                         f"{float(top2[0] - top2[1]):.3e}")
+                stops["logit_tie"].append([b, j])
+                break
+    per_batch = (G - 1) * gqa_per_step(cfg)
+    rec = {"batch": B, "prompt_len": P, "gen": G, "batch_s": batch_s,
+           "gqa_launches": launches, "gqa_launches_per_batch": per_batch,
+           "tokens_identical": bool(np.array_equal(toks_k, toks_p)),
+           "held_row_steps": held_steps, "of_row_steps": B * G,
+           "stops": stops, "routing_near_ties": near,
+           "max_abs_dlogit": worst, "ref_max_abs": scale,
+           "ratio": worst / scale, "limit": LM_TF_REL,
+           "sample_tokens": toks_k[0, :8].tolist()}
+    if moe:
+        rec["prefill_dropped_trained"] = [c["dropped"]
+                                          for c in calls_k[:L]]
+        rec["prefill_C"] = [c["C"] for c in calls_k[:L]]
+        family_init(torch, arch, lm_model)
+        rec["prefill_dropped_init"] = [c["dropped"]
+                                       for c in batch()[2][:L]]
+    log(f"[family serve {arch}] " + json.dumps(rec))
+    del eng, lm_model
+    if launches != per_batch:
+        raise AssertionError(f"{arch} served: {launches} gqa_decode "
+                             f"launches, want {per_batch}")
+    return rec
+
+
+def family_train(torch, api, ops, ref, gk, arch, mesh) -> dict:
+    """Parts A, B 2, B 3 and C for one config: ``FAMILY_STEPS`` steps at
+    full width (one profiled after), the trained model served, the first
+    step again from the same weights, and, for FAMILY_MESH, the one-rank
+    NCCL mesh in both layout modes against the one-device steps."""
+    import gc
+    import math
+
+    import numpy as np
+
+    from repro_torch.core import gpu_cost
+    cfg = family_cfg(api, arch)
+    full = api.get_config(arch, smoke=FAMILY_SMOKE)
+    moe = cfg.family == "moe"
+    T = family_seq(arch)
+    stream = family_stream(api, cfg, FAMILY_BATCH, T)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = family_init(torch, arch, api.build_model(cfg, device=DEV))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.params().values())
+    part_s = {}
+    run = family_run(torch, api, model, stream, FAMILY_STEPS,
+                     moe_at=(0, FAMILY_STEPS - 1), profile=True)
+    part_s["train"] = time.perf_counter() - t0
+    prints, losses = run.pop("prints"), run["losses"]
+    tokens = FAMILY_BATCH * T
+    steady = float(np.median(run["step_ms"][1:]))
+    n_active = cfg.n_params_active if moe else n_params
+    card_gb = torch.cuda.get_device_properties(0).total_memory / 1e9
+    rec = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "full_n_layers": full.n_layers, "n_experts": cfg.n_experts,
+           "full_n_experts": full.n_experts, "top_k": cfg.top_k,
+           "enc_layers": cfg.enc_layers, "params": n_params,
+           "params_active": n_active,
+           "scale": FAMILY_SCALE.get(arch, 0.02), "batch": FAMILY_BATCH,
+           "seq": T, "init_s": init_s, "part_s": part_s, **run,
+           "step_ms_median_after_first": steady,
+           "tokens_per_s": tokens / (steady / 1e3),
+           "card_gb": card_gb, "peak_share_of_card": run["peak_gb"] / card_gb,
+           "bf16_peak_share_6NT": 6.0 * n_active * tokens
+           / (steady / 1e3) / gpu_cost.BF16_PEAK_FLOPS}
+    if moe:
+        from repro_torch.models.blocks import moe_capacity
+        rec["capacity_per_step"] = [moe_capacity(cfg, tokens)] * FAMILY_STEPS
+    log(f"[family train {arch}] " + json.dumps(rec))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{arch}: non-finite loss {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch}: loss did not fall: {losses}")
+    if arch not in FAMILY_CUTS and \
+            not rec["peak_share_of_card"] <= FAMILY_MEM_SHARE:
+        raise AssertionError(f"{arch}: peak {run['peak_gb']:.1f} GB over "
+                             f"{FAMILY_MEM_SHARE} of the card: cut depth")
+    if moe:
+        got = sorted(n for n, g in run["router_max_g"].items() if g > 0)
+        want = sorted(run["router_max_g"]) if cfg.top_k > 1 else []
+        if len(run["router_max_g"]) != cfg.n_layers or got != want:
+            raise AssertionError(f"{arch} (top-{cfg.top_k}): router "
+                                 f"gradients {run['router_max_g']}")
+    t0 = time.perf_counter()
+    if moe or cfg.family == "encdec":
+        rec["serve"] = family_serve(torch, api, ops, ref, gk, arch, cfg,
+                                    model)
+    part_s["serve"] = time.perf_counter() - t0
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # B 2: the first step again from the same weights, bit for bit; for
+    # an MoE first the loss with every expert's wd zeroed
+    t0 = time.perf_counter()
+    model = family_init(torch, arch, api.build_model(cfg, device=DEV))
+    if moe:
+        with torch.no_grad():
+            for n, p in model.params().items():
+                if n.endswith(".ffn.wd"):
+                    p.zero_()
+            batch = {k: torch.as_tensor(v, device=DEV)
+                     for k, v in stream.batch_at(0).items()}
+            zero = float(model.loss(batch))
+        family_init(torch, arch, model)
+        rec["zero_wd_first_loss"] = zero
+        rec["zero_wd_rel_effect"] = abs(zero - losses[0]) / abs(losses[0])
+        if not rec["zero_wd_rel_effect"] > FAMILY_EXPERT_EFFECT:
+            raise AssertionError(f"{arch}: zeroing the experts' wd moves "
+                                 f"the first loss by "
+                                 f"{rec['zero_wd_rel_effect']:.3e}")
+    again = family_run(torch, api, model, stream, 1)
+    rec["again"] = {"loss": again["losses"][0], "step_ms": again["step_ms"],
+                    "grads_compared": len(again["prints"][0]),
+                    "grads_differing": prints_differ(again["prints"][0],
+                                                     prints[0])}
+    log(f"[family again {arch}] " + json.dumps(rec["again"]))
+    del model, again
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_s["again"] = time.perf_counter() - t0
+    if rec["again"]["grads_differing"] or \
+            rec["again"]["loss"] != losses[0]:
+        raise AssertionError(f"{arch}: the step from the same weights is "
+                             f"not bit for bit: {rec['again']}")
+
+    # B 3: the one-rank NCCL mesh in both layout modes
+    if arch in FAMILY_MESH:
+        t0 = time.perf_counter()
+        rec["mesh"] = {}
+        n = FAMILY_MESH_STEPS
+        for mode in ("coswitch", "fixed"):
+            model = family_init(torch, arch, api.build_model(cfg, device=DEV))
+            got = family_run(torch, api, model, stream, n, mesh, mode)
+            r = {"losses": got["losses"], "step_ms": got["step_ms"],
+                 "collectives": got["collectives"],
+                 "peak_gb": got["peak_gb"],
+                 "losses_equal": got["losses"] == losses[:n],
+                 "grads_compared": sum(len(p) for p in got["prints"]),
+                 "grads_differing": [f"{s}:{k}" for s in range(n)
+                                     for k in prints_differ(
+                                         got["prints"][s], prints[s])]}
+            rec["mesh"][mode] = r
+            log(f"[family mesh {arch} {mode}] " + json.dumps(r))
+            del model, got
+            gc.collect()
+            torch.cuda.empty_cache()
+            if not r["losses_equal"] or r["grads_differing"] or \
+                    r["grads_compared"] != n * len(prints[0]):
+                raise AssertionError(f"{arch} {mode} on the mesh: not bit "
+                                     f"for bit one device's: {r}")
+            kind = "all_to_all_single" if moe else "all_reduce"
+            if not r["collectives"].get(kind):
+                raise AssertionError(f"{arch} {mode}: no {kind} called: "
+                                     f"{r['collectives']}")
+        part_s["mesh"] = time.perf_counter() - t0
+    log(f"[family {arch}] seconds by part: " + json.dumps(part_s))
+    return rec
+
+
+def host_free_gb() -> float:
+    """The host's available memory (``/proc/meminfo``), in GB."""
+    for line in pathlib.Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            return int(line.split()[1]) * 1024 / 1e9
+    return float("nan")
+
+
+def family_f32(torch, api, arch, cut, B, T, smoke=False,
+               capacity_factor=None) -> dict:
+    """Part B 1: ``arch`` at ``cut`` in f32 (TF32 off), the same weights
+    (drawn on the card at the family's scale) on the card and on the CPU:
+    the loss of one batch within TRAIN_F32_TOL relative and every
+    gradient within TRAIN_F32_TOL x its max |g|; an MoE's routing equal
+    outside MOE_ROUTE_MARGIN, and with ``capacity_factor`` dropped
+    assignments in every layer."""
+    import gc
+    cfg = dataclasses.replace(api.get_config(arch, smoke=FAMILY_SMOKE or
+                                             smoke), dtype="float32", **cut)
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+    free_gb = host_free_gb()
+    log(f"[family f32 {arch}] host memory available: {free_gb:.1f} GB")
+    dev = family_init(torch, arch, api.build_model(cfg, device=DEV))
+    cpu = api.build_model(cfg, device="cpu")
+    with torch.no_grad():
+        for p, q in zip(cpu.params().values(), dev.params().values()):
+            p.copy_(q)
+    batch = family_stream(api, cfg, B, T).batch_at(0)
+    L = cfg.n_layers if cfg.family == "moe" else 0
+    out = {}
+    for name, m in (("cpu", cpu), ("cuda", dev)):
+        m.requires_grad_(True)
+        params = list(m.params().values())
+        t0 = time.perf_counter()
+        with MoeRecorder(torch) as r:
+            loss = m.loss({k: torch.as_tensor(v, device=m.device)
+                           for k, v in batch.items()})
+        grads = torch.autograd.grad(loss, params)
+        out[name] = (float(loss.detach()), grads, r.calls[:L],
+                     time.perf_counter() - t0)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if not loss_rel <= TRAIN_F32_TOL:
+        raise AssertionError(f"{arch} f32 loss: card {out['cuda'][0]} CPU "
+                             f"{out['cpu'][0]}")
+    worst, worst_name = 0.0, None
+    t0 = time.perf_counter()
+    for name, gd, gc_ in zip(cpu.params(), out["cuda"][1], out["cpu"][1]):
+        gc_ = gc_.to(gd.device)              # compared on the card
+        scale = float(gc_.abs().max())
+        e = max_err(gd, gc_)
+        if not e <= TRAIN_F32_TOL * scale:
+            raise AssertionError(f"{arch} f32 grad {name}: max |err| "
+                                 f"{e:.3e} beyond {TRAIN_F32_TOL} x "
+                                 f"{scale:.3e}")
+        if scale and e / scale >= worst:
+            worst, worst_name = e / scale, name
+    rec = {"arch": cfg.name, "smoke": FAMILY_SMOKE or smoke,
+           "n_layers": cfg.n_layers, "enc_layers": cfg.enc_layers,
+           "n_experts": cfg.n_experts, "d_model": cfg.d_model,
+           "capacity_factor": cfg.capacity_factor, "batch": B, "seq": T,
+           "host_free_gb": free_gb,
+           "params": sum(p.numel() for p in cpu.params().values()),
+           "loss_cpu": out["cpu"][0], "loss_cuda": out["cuda"][0],
+           "loss_rel_err": loss_rel, "worst_grad_ratio": worst,
+           "worst_grad": worst_name, "tol": TRAIN_F32_TOL,
+           "cpu_s": out["cpu"][3], "cuda_s": out["cuda"][3],
+           "compare_s": time.perf_counter() - t0}
+    if L:
+        rec["routing"] = route_compare(torch, out["cpu"][2], out["cuda"][2],
+                                       cfg.top_k)
+        rec["C"] = [c["C"] for c in out["cpu"][2]]
+        rec["dropped"] = [c["dropped"] for c in out["cpu"][2]]
+        if capacity_factor is not None and not all(rec["dropped"]):
+            raise AssertionError(f"{arch} f32 at capacity_factor "
+                                 f"{capacity_factor}: drops {rec['dropped']}")
+    log(f"[family f32 {arch}] " + json.dumps(rec))
+    del cpu, dev, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_family(torch, api, ops, ref, gk) -> dict:
+    """27. The dense, MoE and encoder-decoder families trained on the card
+    (``FAMILY_ARCHS`` at ``FAMILY_CUTS``), each freed before the next, the
+    trained MoE models and whisper served, then each in f32 card against
+    CPU (``FAMILY_F32``) and both MoE configs at SMOKE widths with drops."""
+    mesh = api.make_local_mesh(1, DEV)
+    rec = {arch: family_train(torch, api, ops, ref, gk, arch, mesh)
+           for arch in FAMILY_ARCHS}
+    rec["f32"] = {arch: family_f32(torch, api, arch, cut, B, T)
+                  for arch, (cut, B, T) in FAMILY_F32.items()}
+    rec["f32_drops"] = {
+        arch: family_f32(torch, api, arch, {}, *FAMILY_F32_DROP, smoke=True,
+                         capacity_factor=FAMILY_F32_DROP_CF)
+        for arch in FAMILY_CUTS}
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -3987,6 +4603,7 @@ def main(argv=None) -> int:
     record["split"] = run("split", phase_split, torch, api, ops, ref, gk)
     record["hybrid_mesh"] = run("hybrid_mesh", phase_hybrid_mesh, torch, api,
                                 ops, ref, gk, lk)
+    record["family"] = run("family", phase_family, torch, api, ops, ref, gk)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
@@ -3995,6 +4612,7 @@ def main(argv=None) -> int:
     bd = record["birrd"]
     sp = record["split"]["llama_times"]
     hyb = record["hybrid_mesh"]
+    fam = record["family"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "route": "cuda", "source": SOURCE,
         "replaces": REPLACES,
@@ -4012,6 +4630,10 @@ def main(argv=None) -> int:
             "llama3.2-3b serve (phase 23)":
             record["mesh"]["llama"]["gqa_launches"],
             "zamba2-2.7b serve (phase 26)": hyb["serve"]["gqa_launches"]},
+        "launches_by_path": {
+            f"{fam[a]['arch']} served after training (phase 27)":
+            fam[a]["serve"]["gqa_launches"]
+            for a in FAMILY_ARCHS if "serve" in fam[a]},
         "max_abs_err": gq["max_abs_err"], "ms": gq["ms"],
         "plain_ms": gq["plain_ms"], "bound_ms": gq["bound_ms"],
         "bound_by": gq["bound_by"], "library_ms": gq["library_ms"]}, {

@@ -58,15 +58,22 @@ def moe_apply_ep(cfg: ArchConfig, p, x: torch.Tensor, mesh,
     this rank's dispatch, ``E C`` where it was dropped).  ``p`` holds the
     local shards: experts ``(E/m, D, F/d)`` and ``(E/m, F/d, D)``, the
     shared expert ``(D, F/d)``/``(F/d, D)``, the router and norm whole."""
+    norm = {k: col.copy(v, mesh.get_group("model"))
+            for k, v in p["norm"].named_parameters()}
+    return _ep_normed(cfg, p, apply_norm(cfg.norm, x, norm), mesh,
+                      return_slot)
+
+
+def _ep_normed(cfg: ArchConfig, p, h: torch.Tensor, mesh,
+               return_slot: bool = False):
+    """``moe_apply_ep`` after the block's norm: ``h`` this rank's normed
+    (B_loc, T_loc, D) tokens."""
     E, K = cfg.n_experts, cfg.top_k
     mg, dg = mesh.get_group("model"), data_group(mesh)
     m = axis_sizes(mesh)["model"]
     E_loc = E // m
-    B_loc, T_loc, D = x.shape
+    B_loc, T_loc, D = h.shape
     N = B_loc * T_loc
-
-    norm = {k: col.copy(v, mg) for k, v in p["norm"].named_parameters()}
-    h = apply_norm(cfg.norm, x, norm)
     flat = h.reshape(N, D)
     logits = flat.float() @ col.copy(p["router"], mg)
     top, idx = torch.topk(logits, K, dim=-1)
@@ -127,12 +134,18 @@ def ep_applicable(cfg: ArchConfig, mesh, shape: Sequence[int]) -> bool:
 def moe_apply_ep_stream(cfg: ArchConfig, p, x: torch.Tensor, mesh, tp
                         ) -> torch.Tensor:
     """The EP block on the residual stream in ``tp``'s layout: the
-    sequence-sharded stream is this rank's tokens already; of the
-    replicated one each rank takes its T block and the results are
-    gathered back."""
+    sequence-sharded stream is this rank's tokens already; the replicated
+    one is normed whole on every rank (the norm weights' gradient then
+    whole on each, from the gathered gradient of the normed tokens), each
+    rank takes its T block of the normed tokens and the results are
+    gathered back.  Norming before the split keeps the stream's gradient
+    terms (the residual's and the norm's) summed in the order one device
+    sums them: a split between them made one rank's step differ from one
+    device's in the last bits."""
     if tp.seq:
         return moe_apply_ep(cfg, p, x, mesh)
-    y = moe_apply_ep(cfg, p, col.split(x, 1, tp.group), mesh)
+    h = apply_norm(cfg.norm, x, p["norm"])
+    y = _ep_normed(cfg, p, col.split(h, 1, tp.group), mesh)
     return col.all_gather(y, 1, tp.group, replicated=True)
 
 

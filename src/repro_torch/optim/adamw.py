@@ -90,7 +90,15 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
     """One AdamW step over every name of ``grads`` (of ``params`` and
     ``state``); returns (params, state), both updated in place.  Runs
     under the profiler range ``UPDATE_RANGE``.  ``reduce``: as
-    ``clip_by_global_norm`` takes it."""
+    ``clip_by_global_norm`` takes it.
+
+    Each leaf's arithmetic is ``repro``'s expression, ``m = b1 m + (1 -
+    b1) g``, ``v = b2 v + (1 - b2) g g``, ``w -= lr ((m / b1c) / (sqrt(v /
+    b2c) + eps) + wd w)``, op for op and rounded as the expression rounds
+    it, but in place over two leaf-sized f32 temporaries (the expression
+    held up to four), and each clipped gradient is dropped once its leaf
+    is updated: a full-width MoE layer's 1e9-row embedding needed 4 GB
+    more than one card had."""
     with torch.profiler.record_function(UPDATE_RANGE):
         grads, _ = clip_by_global_norm(grads, max_grad_norm, reduce)
         state.step += 1
@@ -98,13 +106,20 @@ def adamw_update(grads: Params, state: AdamWState, params: Params,
         b1c = float(1 - f32(b1) ** f32(state.step))
         b2c = float(1 - f32(b2) ** f32(state.step))
         lr = float(lr)
-        for name, g in grads.items():
+        for name in list(grads):
+            g = grads.pop(name)
             p, m, v, w = params[name], state.mu[name], state.nu[name], \
                 state.master[name]
-            m.copy_(b1 * m + (1 - b1) * g)
-            v.copy_(b2 * v + (1 - b2) * g * g)
-            upd = (m / b1c) / (torch.sqrt(v / b2c) + eps) + weight_decay * w
-            w.copy_(w - lr * upd)
+            t = torch.mul(g, 1 - b1)
+            m.mul_(b1).add_(t)
+            torch.mul(g, 1 - b2, out=t).mul_(g)
+            v.mul_(b2).add_(t)
+            del g
+            torch.div(v, b2c, out=t).sqrt_().add_(eps)
+            upd = torch.div(m, b1c).div_(t)
+            upd.add_(torch.mul(w, weight_decay, out=t))
+            w.sub_(upd.mul_(lr))
+            del t, upd
             block = getattr(p, "zero1", None)
             if block is None or block.dim is None:
                 p.copy_(w)                 # cast to the param's dtype

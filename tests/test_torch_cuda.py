@@ -610,6 +610,40 @@ def test_rwkv6_loss_and_grads_on_card_match_cpu(cuda):
                                    atol=2e-4 * float(gc.abs().max()))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_is_the_expression_bit_for_bit_on_card(cuda, dtype):
+    """AdamW's in-place update on the card rounds as ``repro``'s
+    expression does (a CUDA division by a host scalar multiplies by its
+    reciprocal, in both forms): three steps' moments, master and
+    parameters equal the expression's bit for bit."""
+    from repro_torch.optim import adamw
+    gen = torch.Generator().manual_seed(5)
+    shapes = {"a": (257, 33), "b": (1000,)}
+    tp = {n: (torch.randn(s, generator=gen) * 0.02).to(cuda, dtype)
+          for n, s in shapes.items()}
+    st = adamw.adamw_init(tp)
+    mu = {n: torch.zeros_like(t) for n, t in st.mu.items()}
+    nu = {n: torch.zeros_like(t) for n, t in st.nu.items()}
+    w = {n: t.clone() for n, t in st.master.items()}
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+    for i in range(3):
+        lr = 3e-3 * (i + 1)
+        g = {n: torch.randn(s, generator=gen).to(cuda, dtype)
+             for n, s in shapes.items()}
+        clipped, _ = adamw.clip_by_global_norm(g, 1.0)
+        tp, st = adamw.adamw_update(g, st, tp, lr)
+        b1c = float(1 - np.float32(b1) ** np.float32(i + 1))
+        b2c = float(1 - np.float32(b2) ** np.float32(i + 1))
+        for n, c in clipped.items():
+            mu[n] = b1 * mu[n] + (1 - b1) * c
+            nu[n] = b2 * nu[n] + (1 - b2) * c * c
+            upd = (mu[n] / b1c) / (torch.sqrt(nu[n] / b2c) + eps) + wd * w[n]
+            w[n] = w[n] - lr * upd
+            for got, want in ((st.mu[n], mu[n]), (st.nu[n], nu[n]),
+                              (st.master[n], w[n]), (tp[n], w[n].to(dtype))):
+                assert torch.equal(got, want), (i, n)
+
+
 # ---------------------------------------------------------------- birrd_apply
 def _routed(aw, gids, ports, device):
     from repro_torch.kernels.birrd_reduce import _routed_stage_mats

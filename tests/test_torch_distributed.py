@@ -732,8 +732,11 @@ def test_rwkv6_tests_see_the_scan(runs):
 
 
 ONE_RANK = [(arch, mode) for arch in ("llama3p2_3b", "rwkv6_1p6b",
-                                      "zamba2_2p7b")
+                                      "zamba2_2p7b", "dbrx_132b",
+                                      "llama4_scout_17b", "whisper_small")
             for mode in ("coswitch", "fixed")]
+#: the MoE configs at 10x the init, where their experts shape the loss
+ONE_RANK_SCALE = {**SCALE, "dbrx_132b": 10.0, "llama4_scout_17b": 10.0}
 
 
 @pytest.mark.parametrize("arch,mode", ONE_RANK,
@@ -744,13 +747,20 @@ def test_one_rank_step_is_one_device_bit_for_bit(arch, mode):
     gets equal the one-device step's bit for bit, in both layout modes.
     Gathers and scatters along T that returned permuted tensors sent a
     gradient fed by them (the embedding's) down another summation order in
-    ``coswitch``."""
+    ``coswitch``; in ``fixed`` the MoE block's split of the replicated
+    stream sat between the block's norm and the residual, so the block
+    input's three gradient terms were summed in another order."""
     from repro_torch.distributed.stepfn import full_named
     cfg = worker.smoke_f32(arch)
     weights = {k: v.detach().clone() for k, v in api.build_model(
         cfg, device="cpu").init(torch.Generator().manual_seed(0),
-                                scale=0.02 * SCALE[arch]).params().items()}
-    tokens = torch.from_numpy(TOKENS % cfg.vocab)
+                                scale=0.02 * ONE_RANK_SCALE[arch]
+                                ).params().items()}
+    batch = {"tokens": torch.from_numpy(TOKENS % cfg.vocab)}
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(np.random.default_rng(2).normal(
+            size=(TOKENS.shape[0], cfg.enc_frames, cfg.d_model)
+        ).astype(np.float32))
 
     def run(mesh):
         model = api.build_model(cfg, device="cpu").load_params(weights)
@@ -760,7 +770,7 @@ def test_one_rank_step_is_one_device_bit_for_bit(arch, mode):
         losses = []
         with worker.clip_seen() as clip:
             for _ in range(2):
-                opt, met = step(opt, {"tokens": tokens})
+                opt, met = step(opt, batch)
                 losses.append(float(met["loss"]))
         return losses, [full_named(model, g, state=True) for g, _ in
                         clip.seen]

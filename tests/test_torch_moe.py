@@ -32,7 +32,7 @@ from repro.models import blocks as jblocks
 from repro.models import build_model as jbuild_model
 from repro_torch.configs import get_config
 from repro_torch.kernels import gqa_decode as gk
-from repro_torch.models import blocks, build_model
+from repro_torch.models import blocks, build_model, lm
 from repro_torch.serve import ServeConfig, ServeEngine
 from repro_torch.weights import to_torch_lm_params
 from test_torch_serve import _jax_greedy
@@ -162,18 +162,44 @@ def test_prefill_and_decode_match_jax(pair):
     assert gk.launch_count() == before        # the CPU runs the plain path
 
 
-def test_loss_and_grads_match_jax(pair):
-    jm, params = pair["jm"], pair["params"]
+@pytest.mark.parametrize("capacity_factor", [None, 0.5])
+def test_loss_and_grads_match_jax(pair, capacity_factor):
+    """The loss and every gradient at the config's capacity factor and at
+    0.5, where dispatch drops assignments in every layer (asserted): the
+    backward through the spill row (a dropped (token, k) reads zeros and
+    gets no gradient) against ``jax.value_and_grad`` at the same
+    tolerance."""
+    arch, jm, params, cfg = pair["arch"], pair["jm"], pair["params"], \
+        pair["cfg"]
+    if capacity_factor is not None:
+        cfg = dataclasses.replace(cfg, capacity_factor=capacity_factor)
+        jm = jbuild_model(dataclasses.replace(jget_config(arch, smoke=True),
+                                              capacity_factor=capacity_factor))
     toks = np.random.default_rng(8).integers(
         0, jm.cfg.vocab, size=(2, 33)).astype(np.int32)
     jloss, jgrads = jax.value_and_grad(jm.loss)(
         params, {"tokens": jnp.asarray(toks)})
-    jgrads = to_torch_lm_params(jax.tree.map(np.asarray, jgrads),
-                                pair["cfg"], "cpu")
-    m = _port(pair["arch"], params)
+    jgrads = to_torch_lm_params(jax.tree.map(np.asarray, jgrads), cfg, "cpu")
+    m = build_model(cfg, device="cpu").load_params(
+        to_torch_lm_params(params, cfg, "cpu"))
     m.requires_grad_(True)
     named = m.params()
-    loss = m.loss({"tokens": torch.from_numpy(toks)})
+    drops = []
+    real = lm.moe_apply
+
+    def counted(c, p, x):
+        with torch.no_grad():
+            drops.append(_drops(c, x, p))
+        return real(c, p, x)
+
+    lm.moe_apply = counted
+    try:
+        loss = m.loss({"tokens": torch.from_numpy(toks)})
+    finally:
+        lm.moe_apply = real
+    assert len(drops) == cfg.n_layers
+    if capacity_factor is not None:
+        assert all(d > 0 for d in drops), drops
     assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
     grads = torch.autograd.grad(loss, list(named.values()))
     reached = {"router": 0, "wu": 0}
@@ -186,7 +212,6 @@ def test_loss_and_grads_match_jax(pair):
                 reached[leaf] += int(np.abs(g.numpy()).max() > 0)
     # the experts get gradients in every layer; the router only through
     # the softmax of K > 1 gates (one gate's softmax is 1 whatever it is)
-    cfg = pair["cfg"]
     assert reached == {"wu": cfg.n_layers,
                        "router": cfg.n_layers if cfg.top_k > 1 else 0}
 

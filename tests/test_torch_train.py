@@ -161,6 +161,37 @@ def test_adamw_update_matches_jax(grad_scale):
                                 atol=1e-6, err_msg=f"step {i} {n}")
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_update_is_the_expression_bit_for_bit(dtype):
+    """The in-place update rounds as ``repro``'s expression does: three
+    steps' moments, master and parameters equal those of the expression
+    written out, bit for bit."""
+    params, grads = _opt_inputs(3, 1.0)
+    tp = {n: torch.from_numpy(p.copy()).to(dtype) for n, p in
+          params.items()}
+    st = adamw.adamw_init(tp)
+    mu = {n: torch.zeros_like(t) for n, t in st.mu.items()}
+    nu = {n: torch.zeros_like(t) for n, t in st.nu.items()}
+    w = {n: t.clone() for n, t in st.master.items()}
+    b1, b2, eps, wd = 0.9, 0.95, 1e-8, 0.1
+    for i, g in enumerate(grads):
+        lr = 3e-3 * (i + 1)
+        tg = {n: torch.from_numpy(x).to(dtype) for n, x in g.items()}
+        clipped, _ = adamw.clip_by_global_norm(tg, 1.0)
+        tp, st = adamw.adamw_update(tg, st, tp, lr)
+        b1c = float(1 - np.float32(b1) ** np.float32(i + 1))
+        b2c = float(1 - np.float32(b2) ** np.float32(i + 1))
+        for n, c in clipped.items():
+            mu[n] = b1 * mu[n] + (1 - b1) * c
+            nu[n] = b2 * nu[n] + (1 - b2) * c * c
+            upd = (mu[n] / b1c) / (torch.sqrt(nu[n] / b2c) + eps) + wd * w[n]
+            w[n] = w[n] - lr * upd
+            assert torch.equal(st.mu[n], mu[n]), (i, n)
+            assert torch.equal(st.nu[n], nu[n]), (i, n)
+            assert torch.equal(st.master[n], w[n]), (i, n)
+            assert torch.equal(tp[n], w[n].to(dtype)), (i, n)
+
+
 def test_adamw_bf16_params_and_master_never_aliases():
     params, grads = _opt_inputs(1, 1e-2)
     tp = {n: torch.from_numpy(p).to(torch.bfloat16) for n, p in
