@@ -968,7 +968,7 @@ def phase_networks(torch, api, rk, obs, nets) -> dict:
         x_dev = x.to(DEV)
         batch_ms = cuda_ms(lambda: prepared(x_dev, activation=torch.relu),
                            iters=10)
-        # one traced run: per-step wall clock, each step fenced
+        # one traced run: per-step device time (CUDA events, no sync)
         obs.reset()
         obs.enable()
         prepared(x_dev, activation=torch.relu)

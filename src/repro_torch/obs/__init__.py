@@ -4,10 +4,16 @@ FEATHER's pitch is that per-layer dataflow/layout switching is worth it only
 if the switching overheads are actually negligible; this package is how the
 repro *measures* that instead of asserting it.  It threads through every
 layer of the stack — planner phases, plan-cache traffic, per-step executor
-wall clock (bracketed by ``torch.cuda.synchronize()``, recorded next to the
-step's modeled cycles/energy), the continuous-batching serve loop, the
-training supervisor, and the whole robustness layer whose counters
-``python -m repro.runtime.chaos`` verifies injections against.
+device time (a pair of CUDA timing events around each step, never a
+device-wide sync, recorded next to the step's modeled cycles/energy), the
+continuous-batching serve loop (batch assembly, the host-to-device copy,
+the forward's enqueue, the wait for the answers), the training supervisor,
+and the whole robustness layer whose counters ``python -m
+repro.runtime.chaos`` verifies injections against.  Tracing on changes no
+value and adds no sync, so it can stay on inside a measured run.  While a
+``torch.profiler`` session is active every span is also a
+``record_function`` range, so the program's spans show in the profiler's
+chrome trace as ``user_annotation`` events on the profiler's clock.
 
 Every emitted family lives in the ``repro_torch.obs.names`` registry
 (name + label keys); ``repro_torch.check`` lints call sites against it,
@@ -83,14 +89,12 @@ Histograms:
       assembled continuous-batch sizes
   ``serve.time_in_queue_ms``
       request wait before batch assembly
-  ``serve.ttft_ms``
-      submit-to-first-output latency
   ``serve.e2e_ms``
       submit-to-completion latency
   ``serve.prefill_ms``
-      LM prefill wall clock per batch
+      LM prefill device time per batch
   ``serve.decode_ms_per_token``
-      LM decode wall clock per token
+      LM decode device time per token
 Spans:
   ``planner.plan``
       whole network co-search (root span)
@@ -105,15 +109,21 @@ Spans:
   ``plan_cache.plan``
       cache-wrapped plan resolution
   ``exec.network``
-      whole planned-network execution
+      whole planned-network execution (host enqueue)
   ``exec.chain``
       one fused-chain dispatch
   ``exec.step``
-      one plan-step kernel dispatch
+      one plan-step kernel dispatch (device time)
   ``serve.plan``
       engine plan resolution at startup
   ``serve.batch``
-      one continuous batch (plan id/tier in attrs)
+      one continuous batch (batch id, plan id/tier in attrs)
+  ``serve.assemble``
+      host batch assembly: zero-padded batch, row copies
+  ``serve.h2d``
+      the assembled batch's host-to-device copy
+  ``serve.collect``
+      wait for the answers, copy them back, split them
   ``train.step``
       one traced training step
 -- end generated --
@@ -128,7 +138,8 @@ Set ``REPRO_TRACE`` to a path and run any launcher (they all call
 ``configure_from_env``)::
 
     REPRO_TRACE=out.jsonl PYTHONPATH=src \\
-        python -m repro.launch.serve --arch llama3p2_3b --smoke --plan p.json
+        python -m repro_torch.launch.serve --arch llama3p2_3b --smoke \\
+        --plan p.json
 
 or programmatically::
 
@@ -139,23 +150,35 @@ or programmatically::
 
 Reading the trace
 -----------------
-``python -m repro.obs.report out.jsonl`` prints the per-plan-step
-modeled-cycles vs measured-wall-clock table (gap ratios, worst offenders)
+``python -m repro_torch.obs.report out.jsonl`` (or ``repro.obs.report``:
+both read the trace alike) prints the per-plan-step modeled-cycles vs
+measured-device-time table (gap ratios, worst offenders)
 plus planner/cache/serve summaries — the calibration artifact the
 measured-vs-modeled roadmap item asks for.  ``--chrome out.json`` converts
 the same events to Chrome ``trace_event`` format: open it in
 ``chrome://tracing`` or https://ui.perfetto.dev to see the span timeline.
-``python -m repro.obs.smoke`` runs a small planned network with tracing on
-and validates the trace schema end-to-end (the CI smoke).
+``python -m repro_torch.obs.smoke`` runs a small planned network with
+tracing on and validates the trace schema end-to-end (the CI smoke).
+
+Beside the device's work, enable tracing inside a ``torch.profiler``
+session; to see the serve workers' spans, profile every thread::
+
+    from torch._C._profiler import _ExperimentalConfig
+    with torch.profiler.profile(activities=[...], experimental_config=
+            _ExperimentalConfig(profile_all_threads=True)) as prof:
+        obs.enable()
+        ...   # serve
+        obs.disable()
+    prof.export_chrome_trace("trace.json")   # serve.* / exec.* ranges
 """
 from . import names
 from .log import Logger, get_logger, set_level
 from .metrics import (counter_value, gauge_value, hist_samples, hist_stats,
                       inc_counter, observe, registry, set_gauge, snapshot)
-from .trace import (NULL_SPAN, TRACE_SCHEMA, Span, configure_from_env,
+from .trace import (NULL_SPAN, TRACE_SCHEMA, Mark, Span, configure_from_env,
                     disable, enable, enabled, events, export_chrome_trace,
                     flush, measure, now_us, read_trace, record_event,
-                    record_span, reset, span, validate_trace)
+                    record_span, reset, resolve, span, validate_trace)
 
 __all__ = [
     "names",
@@ -163,7 +186,7 @@ __all__ = [
     "inc_counter", "set_gauge", "observe", "counter_value", "gauge_value",
     "hist_samples", "hist_stats", "snapshot", "registry",
     "NULL_SPAN", "TRACE_SCHEMA", "Span", "span", "record_span",
-    "record_event", "now_us", "enable", "disable", "enabled", "reset",
+    "Mark", "resolve", "record_event", "now_us", "enable", "disable", "enabled", "reset",
     "events", "flush", "read_trace", "validate_trace",
     "export_chrome_trace", "configure_from_env", "measure",
 ]

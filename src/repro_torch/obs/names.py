@@ -66,10 +66,9 @@ HISTOGRAMS: Dict[str, Tuple[Tuple[str, ...], str]] = {
     "train.step_ms": ((), "traced training-step wall clock"),
     "serve.batch_size": ((), "assembled continuous-batch sizes"),
     "serve.time_in_queue_ms": ((), "request wait before batch assembly"),
-    "serve.ttft_ms": ((), "submit-to-first-output latency"),
     "serve.e2e_ms": ((), "submit-to-completion latency"),
-    "serve.prefill_ms": ((), "LM prefill wall clock per batch"),
-    "serve.decode_ms_per_token": ((), "LM decode wall clock per token"),
+    "serve.prefill_ms": ((), "LM prefill device time per batch"),
+    "serve.decode_ms_per_token": ((), "LM decode device time per token"),
 }
 
 # Span attrs are open-ended (plan ids, step indices, shapes ride along), so
@@ -81,11 +80,14 @@ SPANS: Dict[str, str] = {
     "planner.dp_extend": "DP forward extension over boundaries",
     "planner.argmin": "backtrack/argmin over the DP table",
     "plan_cache.plan": "cache-wrapped plan resolution",
-    "exec.network": "whole planned-network execution",
+    "exec.network": "whole planned-network execution (host enqueue)",
     "exec.chain": "one fused-chain dispatch",
-    "exec.step": "one plan-step kernel dispatch",
+    "exec.step": "one plan-step kernel dispatch (device time)",
     "serve.plan": "engine plan resolution at startup",
-    "serve.batch": "one continuous batch (plan id/tier in attrs)",
+    "serve.batch": "one continuous batch (batch id, plan id/tier in attrs)",
+    "serve.assemble": "host batch assembly: zero-padded batch, row copies",
+    "serve.h2d": "the assembled batch's host-to-device copy",
+    "serve.collect": "wait for the answers, copy them back, split them",
     "train.step": "one traced training step",
 }
 

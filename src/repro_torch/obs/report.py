@@ -9,9 +9,12 @@ port's spans and counters carry ``repro.obs``'s names, so this report and
 
 The centerpiece is the per-plan-step calibration table: every ``exec.step``
 span carries the step's MODELED cycles/energy (copied from the plan
-artifact) next to its MEASURED wall-clock (the span duration, fenced by
-``torch.cuda.synchronize()``), so the report can print, per step, the
-analytical prediction, the measurement, and the gap ratio between them —
+artifact) next to its MEASURED time (the span duration: on the card the
+step's device time between two CUDA timing events, taken with no sync, so
+the executor runs as it does untraced; on the CPU its host time; the host's
+enqueue time rides along as ``host_us``), so the report can print, per
+step, the analytical prediction, the measurement, and the gap ratio
+between them —
 and rank the worst offenders, which is exactly where the cost model needs
 work (and exactly the labeled data a learned surrogate trains on).
 

@@ -6,7 +6,7 @@
 The port of ``repro.obs.smoke``: plans a network, executes it through
 ``repro_torch.api.execute_network`` on ``--device`` (cuda by default;
 raises without CUDA) with tracing enabled — every ``exec.step`` span is one
-``rir_matmul`` launch, fenced by ``torch.cuda.synchronize()`` — flushes
+``rir_matmul`` launch, timed on the device by two CUDA events — flushes
 the JSONL trace, validates it against the trace schema, and prints the
 model-vs-measured report.  Exits non-zero on any schema violation or on a
 trace missing the spans the instrumentation promises (planner phases,

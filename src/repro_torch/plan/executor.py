@@ -17,7 +17,7 @@ no standalone relayout pass runs between layers:
   two boundary layouts agree the residual add is FUSED into the consumer's
   epilogue (the kernel's ``residual`` operand); otherwise the join goes
   through canonical order and ``adapt_activation``.
-* Fused layer groups (``PlanStep.fused_with``) are fenced and measured as
+* Fused layer groups (``PlanStep.fused_with``) are timed and measured as
   one unit; the math is left identical to the unfused schedule.
 * A GEMM chain pre-arranges each weight offline (``permute_weight_blocks``)
   to contract against an activation stored in the incoming boundary
@@ -330,9 +330,10 @@ class PreparedPlan:
 
     def __call__(self, x, *, activation: Activation = None) -> torch.Tensor:
         plan, block, perms = self.plan, self.block, self.perms
-        # traced executions fence every step with a device sync and record
-        # the measured wall-clock next to the plan's modeled numbers; values
-        # are untouched, so outputs are bit-identical traced or not
+        # traced executions mark every step on the device (CUDA timing
+        # events, no sync) and record its device time next to the plan's
+        # modeled numbers; values are untouched, so outputs are
+        # bit-identical traced or not
         traced = obs.enabled()
         x = _tensor(x).to(self.device)
         with obs.span("exec.chain",
@@ -343,7 +344,7 @@ class PreparedPlan:
             for i, (step, w_eff) in enumerate(zip(plan.steps, self.w_eff)):
                 faults.site(faults.EXEC_DISPATCH)
                 if traced:
-                    t0 = obs.now_us()
+                    m0 = obs.Mark(self.device)
                 cur = ops.rir_matmul(cur.contiguous(), w_eff,
                                      self.perm_dev[i + 1],
                                      block_n=self.block_n[i])
@@ -353,10 +354,9 @@ class PreparedPlan:
                     # elementwise: commutes with block perms
                     cur = activation(cur)
                 if traced:
-                    if cur.is_cuda:
-                        torch.cuda.synchronize(cur.device)
-                    obs.record_span("exec.step", t0,
-                                    _step_attrs(self._provenance(), i, step))
+                    obs.record_span("exec.step", m0.host_us,
+                                    _step_attrs(self._provenance(), i, step),
+                                    marks=(m0, obs.Mark(self.device)))
             out = invert_block_perm(cur, perms[-1], block) \
                 if len(perms[-1]) > 1 else cur
         return out
@@ -662,7 +662,7 @@ class PreparedNetwork:
                 bias=bias))
         self._buffer_set = set(graph.buffer_sources())
         # fused groups (schema v4): ``fused_with`` chains a step into its
-        # immediate consumer, so the group is fenced (and its wall-clock
+        # immediate consumer, so the group is timed (its device time
         # measured) as ONE unit.  ``_group_start[i]`` is the first member of
         # the group step i closes; unfused steps are their own group.
         for i, step in enumerate(plan.steps):
@@ -701,22 +701,26 @@ class PreparedNetwork:
     def assemble_batch(self, samples: Sequence) -> torch.Tensor:
         """Stack 1..max_batch single samples, zero-padded to the plan's N.
 
-        The batch is assembled on the host and moved to the device in one
-        copy.  Each sample must match ``input_shape()[1:]`` exactly.
+        The batch is assembled on the host (span ``serve.assemble``) and
+        moved to the device in one copy (``serve.h2d``).  Each sample must
+        match ``input_shape()[1:]`` exactly.
         """
         n = self.max_batch
         k = len(samples)
         if not 1 <= k <= n:
             raise PlanError(f"{k} samples for max_batch={n}")
         shp = tuple(self.input_shape[1:])
-        x = torch.zeros((n,) + shp, dtype=torch.float32)
-        for i, s in enumerate(samples):
-            a = _f32(s)
-            if tuple(a.shape) != shp:
-                raise PlanError(f"sample {i} shape {tuple(a.shape)} != "
-                                f"planned per-sample shape {shp}")
-            x[i] = a
-        return x.to(self.device)
+        traced = obs.enabled()
+        with obs.span("serve.assemble", {"batch": k} if traced else None):
+            x = torch.zeros((n,) + shp, dtype=torch.float32)
+            for i, s in enumerate(samples):
+                a = _f32(s)
+                if tuple(a.shape) != shp:
+                    raise PlanError(f"sample {i} shape {tuple(a.shape)} != "
+                                    f"planned per-sample shape {shp}")
+                x[i] = a
+        with obs.span("serve.h2d", {"batch": k} if traced else None):
+            return x.to(self.device)
 
     def execute_requests(self, samples: Sequence, *,
                          activation: Activation = None
@@ -748,9 +752,12 @@ class PreparedNetwork:
     def __call__(self, x, *, activation: Activation = None) -> torch.Tensor:
         block = self.block
         N, H, W, C = self.input_shape
-        # traced executions fence every layer (group) with a device sync and
-        # record the measured wall-clock next to the plan's modeled numbers;
-        # values are untouched, so outputs are bit-identical traced or not
+        # traced executions mark every layer (group) on the device (CUDA
+        # timing events, no sync: ``exec.network`` is then the host's enqueue
+        # of the forward) and record each group's device time next to the
+        # plan's modeled numbers; values are untouched, so outputs are
+        # bit-identical traced or not.  Work another thread queues on the
+        # same stream between a group's two events counts in its time
         traced = obs.enabled()
         with obs.span("exec.network",
                       dict(self._provenance(), batch=int(N))
@@ -763,11 +770,11 @@ class PreparedNetwork:
                 cur = apply_block_perm(cur, self.perms[0], block)
             buffers: Dict[int, torch.Tensor] = {}
             last = len(self.steps) - 1
-            t0 = None
+            m0 = None
             for i, st in enumerate(self.steps):
                 faults.site(faults.EXEC_DISPATCH)
                 if traced and self._group_start[i] == i:
-                    t0 = obs.now_us()
+                    m0 = obs.Mark(self.device)
                 if st.row_map is None:
                     patches = cur
                 else:
@@ -795,11 +802,9 @@ class PreparedNetwork:
                     y = y + self._join_term(st, je, buffers[je.src], block)
                 if activation is not None and i < last:
                     y = activation(y)
-                # a fused step's output stays inside the group: no fence, no
+                # a fused step's output stays inside the group: no mark, no
                 # span — the group's tail measures the whole chain
                 if traced and self.plan.steps[i].fused_with is None:
-                    if y.is_cuda:
-                        torch.cuda.synchronize(y.device)
                     gs = self._group_start[i]
                     attrs = _step_attrs(self._provenance(), i,
                                         self.plan.steps[i])
@@ -812,7 +817,8 @@ class PreparedNetwork:
                                                   for s in members),
                             modeled_stall_cycles=sum(s.dram_stall_cycles
                                                      for s in members))
-                    obs.record_span("exec.step", t0, attrs)
+                    obs.record_span("exec.step", m0.host_us, attrs,
+                                    marks=(m0, obs.Mark(self.device)))
                 if i in self._buffer_set:
                     buffers[i] = y
                 cur = y

@@ -31,12 +31,17 @@ Backpressure is a *typed* contract: a full queue (or an injected
 ``serve.queue`` admission fault — the chaos schedule's new site) rejects
 with ``QueueFullError`` immediately; admission never blocks and never
 deadlocks.  Observability: ``serve.queue_depth`` gauge,
-``serve.batch_size`` / ``serve.time_in_queue_ms`` / ``serve.ttft_ms`` /
-``serve.e2e_ms`` (and, for LMs, ``serve.prefill_ms`` /
-``serve.decode_ms_per_token``, fenced with ``torch.cuda.synchronize``)
+``serve.batch_size`` / ``serve.time_in_queue_ms`` / ``serve.e2e_ms`` (and,
+for LMs, ``serve.prefill_ms`` / ``serve.decode_ms_per_token``: device time
+between CUDA timing events, read after the batch's one copy back)
 histograms, ``serve.requests`` / ``serve.rejected{reason=}``
 / ``serve.batches`` / ``serve.plan_upgrade`` counters, and a ``serve.batch``
-span carrying ``plan_id`` / ``plan_tier`` / ``plan_reason``.
+span carrying ``batch_id`` / ``plan_id`` / ``plan_tier`` / ``plan_reason``.
+Inside it, for planned networks: ``serve.assemble`` (the host batch),
+``serve.h2d`` (its copy in), ``exec.network`` (the forward's enqueue, with
+an ``exec.step`` per layer group) and ``serve.collect`` (the wait for the
+answers and their copy back).  Tracing adds no device sync: a network
+batch's only one is its copy back, an LM batch's its tokens' copy back.
 """
 from __future__ import annotations
 
@@ -170,11 +175,17 @@ class _NetworkBackend:
 
     def run(self, prepared, payloads: Sequence) -> List[np.ndarray]:
         # one host-to-device copy of the assembled batch in, one
-        # device-to-host copy of the real requests' rows out (the fence)
+        # device-to-host copy of the real requests' rows out (the batch's
+        # only sync, after which the traced steps' device times are read)
         k = len(payloads)
         y = prepared(prepared.assemble_batch(payloads))
-        host = y[:k].cpu().numpy()
-        return [host[i] for i in range(k)]
+        traced = obs.enabled()
+        with obs.span("serve.collect", {"batch": k} if traced else None):
+            host = y[:k].cpu().numpy()
+            outs = [host[i] for i in range(k)]
+        if traced:
+            obs.resolve()
+        return outs
 
     def upgraded(self, resolved):
         """Build the tier-1 prepared network for an upgraded plan."""
@@ -236,11 +247,6 @@ class _LMBackend:
                              f"({self.config.prompt_len},) — requests carry "
                              f"exactly prompt_len tokens")
 
-    def _fence(self) -> None:
-        import torch
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-
     def run(self, _prepared, payloads: Sequence) -> List[np.ndarray]:
         import torch
 
@@ -250,9 +256,11 @@ class _LMBackend:
         for i, p in enumerate(payloads):
             prompts[i] = np.asarray(p, np.int64)
         gen = self.config.gen
+        traced = obs.enabled()
         with torch.inference_mode():
             tokens = torch.from_numpy(prompts).to(self.device)
-            t0 = time.perf_counter()
+            if traced:
+                m0 = obs.Mark(self.device)
             if self.cfg.family in ("ssm", "hybrid"):
                 # scan the prompt in one token at a time, as the JAX engine
                 # does: the recurrent states come from stepping
@@ -262,25 +270,27 @@ class _LMBackend:
                                                            tokens[:, t])
             else:
                 cache, logits = self.model.prefill(tokens, self.max_seq)
-            self._fence()
-            t_prefill = time.perf_counter() - t0
-            obs.observe("serve.prefill_ms", t_prefill * 1e3)
+            if traced:
+                m1 = obs.Mark(self.device)
             tok = torch.argmax(logits, dim=-1)
             out = [tok]
-            t0 = time.perf_counter()
             for _ in range(gen - 1):
                 cache, logits = self.model.decode_step(cache, tok)
                 tok = torch.argmax(logits, dim=-1)
                 out.append(tok)
-            self._fence()
-            t_decode = time.perf_counter() - t0
-            # the one device-to-host copy: (B, gen) tokens
+            if traced:
+                m2 = obs.Mark(self.device)
+            # the one device-to-host copy, and the batch's only sync:
+            # (B, gen) tokens
             toks = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
-        if gen > 1:
-            obs.observe("serve.decode_ms_per_token",
-                        t_decode * 1e3 / (gen - 1))
-        log.debug("batch of %d: prefill %.1f ms; decode %.1f ms/token",
-                  k, t_prefill * 1e3, t_decode * 1e3 / max(1, gen - 1))
+        if traced:
+            prefill_ms, decode_ms = m1.ms_since(m0), m2.ms_since(m1)
+            obs.observe("serve.prefill_ms", prefill_ms)
+            if gen > 1:
+                obs.observe("serve.decode_ms_per_token",
+                            decode_ms / (gen - 1))
+            log.debug("batch of %d: prefill %.1f ms; decode %.1f ms/token",
+                      k, prefill_ms, decode_ms / max(1, gen - 1))
         return [toks[i] for i in range(k)]
 
     def upgraded(self, resolved):
@@ -339,6 +349,7 @@ class ServeEngine:
         self._swap_lock = threading.Lock()
         self._queue: "queue.Queue" = queue.Queue(maxsize=config.queue_capacity)
         self._rid = itertools.count()
+        self._batch_id = itertools.count()
         self._workers: List[threading.Thread] = []
         self._upgrader: Optional[threading.Thread] = None
         self._stop = threading.Event()
@@ -509,7 +520,7 @@ class ServeEngine:
                             (t_asm - t.submit_us) / 1e3)
         attrs = None
         if traced:
-            attrs = {"batch": len(batch)}
+            attrs = {"batch": len(batch), "batch_id": next(self._batch_id)}
             if resolved is not None:
                 attrs.update(plan_id=resolved.plan.plan_id,
                              plan_tier=resolved.tier_name,
@@ -530,9 +541,6 @@ class ServeEngine:
         for t, out in zip(batch, outs):
             t._resolve(value=out)
             if traced:
-                # one batch yields each request's first (and, for the
-                # network backend, only) output token/tensor
-                obs.observe("serve.ttft_ms", (done - t.submit_us) / 1e3)
                 obs.observe("serve.e2e_ms", (done - t.submit_us) / 1e3)
 
     # ---------------------------------------------------------- tier upgrade

@@ -188,6 +188,95 @@ def test_served_batches_equal_sequential_on_card(cuda):
         assert np.array_equal(a, b)
 
 
+class _SyncCount:
+    def __init__(self):
+        self.n = 0
+
+    def __call__(self, *a, **k):
+        self.n += 1
+
+
+def test_traced_forward_makes_no_sync_on_card(cuda, monkeypatch):
+    """Tracing a ``PreparedNetwork`` forward adds no device sync: each
+    ``exec.step``'s ``dur`` is the device time between the two timing
+    events recorded around it, and the output is bit-identical."""
+    from repro_torch import api, obs
+    from repro_torch.serve import build_graph
+    graph = build_graph("tiny").with_batch(4)
+    plan = api.plan_network(graph, api.EvalConfig(), opts=api.PlannerOptions(
+        switch_modes=("rir",), layouts=(api.Layout.parse("HWC_C32"),),
+        parallel_dims=("C", "P", "Q")))
+    ws = api.init_graph_weights(list(graph.layers), seed=0)
+    prepared = api.prepare_network(plan, graph, ws, device=cuda)
+    x = torch.randn(graph.input_shape(),
+                    generator=torch.Generator().manual_seed(5)).to(cuda)
+    y_off = prepared(x).clone()
+    torch.cuda.synchronize()
+    made, real_event = [], torch.cuda.Event
+
+    def Event(*a, **k):
+        made.append(real_event(*a, **k))
+        return made[-1]
+
+    syncs = _SyncCount()
+    obs.reset()
+    obs.enable()
+    try:
+        monkeypatch.setattr(torch.cuda, "Event", Event)
+        monkeypatch.setattr(torch.cuda, "synchronize", syncs)
+        y_on = prepared(x)
+        assert syncs.n == 0
+        monkeypatch.undo()
+        steps = [e for e in obs.events()
+                 if e.get("ev") == "span" and e["name"] == "exec.step"]
+    finally:
+        obs.reset()
+    groups = sum(s.fused_with is None for s in plan.steps)
+    assert len(steps) == groups and len(made) == 2 * groups
+    for e, (a, b) in zip(steps, zip(made[::2], made[1::2])):
+        assert e["dur"] == a.elapsed_time(b) * 1e3 > 0
+        assert e["attrs"]["host_us"] > 0
+    assert torch.equal(y_on, y_off)
+
+
+@pytest.mark.parametrize("traced", [False, True])
+def test_served_batches_call_no_device_sync_on_card(cuda, monkeypatch,
+                                                    traced):
+    """A served batch, network or LM, traced or not, calls no
+    ``torch.cuda.synchronize``: its only sync is its copy back."""
+    from repro_torch import api, obs
+    net = api.ServeConfig(graph="tiny", max_batch=4, workers=2,
+                          device="cuda")
+    lm = api.ServeConfig(arch="llama3p2_3b", smoke=True, device="cuda",
+                         max_batch=2, prompt_len=8, gen=4, workers=1)
+    samples = [np.random.default_rng(i).standard_normal((8, 8, 16))
+               .astype(np.float32) for i in range(6)]
+    prompts = [np.arange(8) % 7, np.arange(8) % 5]
+    syncs = _SyncCount()
+    obs.reset()
+    with api.ServeEngine(net) as a, api.ServeEngine(lm) as b:
+        a.serve(samples[:4])
+        b.serve(prompts)                 # warm: builds and first launches
+        if traced:
+            obs.enable()
+        monkeypatch.setattr(torch.cuda, "synchronize", syncs)
+        a.serve(samples)
+        b.serve(prompts)
+        monkeypatch.undo()
+    try:
+        assert syncs.n == 0
+        if traced:
+            steps = [e for e in obs.events() if e.get("ev") == "span"
+                     and e["name"] == "exec.step"]
+            assert steps and all(e["dur"] > 0 for e in steps)
+            assert obs.hist_samples("serve.prefill_ms")[0] > 0
+            assert obs.hist_samples("serve.decode_ms_per_token")[0] > 0
+        else:
+            assert obs.events() == []
+    finally:
+        obs.reset()
+
+
 # ------------------------------------------------------------------ gqa_decode
 def _gqa_inputs(b, hq, hkv, d, s, dtype, device, seed):
     gen = torch.Generator().manual_seed(seed)

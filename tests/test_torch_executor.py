@@ -275,8 +275,9 @@ def test_to_torch_weights_checks_shapes():
 
 
 def test_traced_execution_spans_and_identical_outputs(res_plan):
-    """Tracing fences and records one ``exec.step`` per step (group) with
-    the plan's modeled numbers, and never changes the values."""
+    """Tracing records one ``exec.step`` per step (group) with the plan's
+    modeled numbers and its host enqueue time, and never changes the
+    values."""
     from repro_torch import obs
     graph = residual_gemm_graph()
     ws = init_graph_weights(list(graph.layers), seed=4)
@@ -296,6 +297,7 @@ def test_traced_execution_spans_and_identical_outputs(res_plan):
     assert secs > 0 and len(nets) == 1
     assert len(steps) == sum(s.fused_with is None for s in res_plan.steps)
     assert all(e["attrs"]["plan_id"] == res_plan.plan_id for e in steps)
+    assert all(e["attrs"]["host_us"] == e["dur"] > 0 for e in steps)
     assert torch.equal(y_on, prepared(x))
 
 
