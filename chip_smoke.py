@@ -881,13 +881,13 @@ def phase_kernel_resnet(torch, api, ops, ref, rk, nets) -> dict:
         # the bound counts the work the layer needs: its own output width,
         # not the columns the weight is padded with to whole perm blocks
         N = st.wl.M
-        work = rk.work(M, K, N, 4, fused, len(perm))
+        cut = rk.launch_plan(M, K, b.shape[1], bn)
+        work = rk.work(M, K, N, 4, fused, len(perm), design=cut.design)
         flops, nbytes = work.flops, work.bytes
         bd = gpu_cost.bound_ms(work)
         flop_ms, byte_ms = bd["op_ms"], bd["byte_ms"]
         call = lambda: ops.rir_matmul(  # noqa: E731
             a, b, perm_t, residual=r, block_n=bn)
-        cut = rk.launch_plan(M, K, b.shape[1], bn)
         ms, seen = kernel_ms(call, cut.kernels)
         row = {"step": i, "layer": st.wl.name, "M": M, "K": K, "N": N,
                "N_launched": b.shape[1], "block_n": bn, "residual": fused,
@@ -940,6 +940,96 @@ def phase_kernel_resnet(torch, api, ops, ref, rk, nets) -> dict:
     log("[kernel] 392x4608x512 (split-K shape): rows 0-6, 1-7 and 49-97 "
         "alone == the same rows in the batch, bit for bit")
     return {"steps": rows, "total": tot}
+
+
+#: BERT-Large's encoder GEMMs at the benchmark's batch, 64 sequences of
+#: 384 tokens: (name, K, N, a residual joins the output), each once a layer
+BERT_GEMMS = (("qkv", 1024, 3072, False), ("attn_out", 1024, 1024, True),
+              ("ffn_up", 1024, 4096, False), ("ffn_down", 4096, 1024, True))
+BERT_ROWS = 64 * 384
+
+
+def phase_kernel_bert(torch, ops, ref, rk) -> dict:
+    """BERT-Large's four encoder GEMMs through ``ops.rir_matmul`` at the
+    benchmark's shapes, with a residual and a perm on attn-out and FFN
+    down, each weight's planes made by ``prepare_weight`` and handed to
+    the launch: held against the plain version on the same tensors, the
+    launches counted by design (all four on 3xTF32), then each timed by
+    device time beside the SIMT design forced on the same operands and
+    ``torch.matmul`` (fp32, TF32 off)."""
+    from repro_torch.core import gpu_cost
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    cpu_gen = torch.Generator(device="cpu").manual_seed(5)
+    M = BERT_ROWS
+    cases = []
+    for name, K, N, fused in BERT_GEMMS:
+        a = torch.randn(M, K, generator=gen, device=DEV)
+        b = torch.randn(K, N, generator=gen, device=DEV) / K ** 0.5
+        r = torch.randn(M, N, generator=gen, device=DEV) if fused else None
+        perm = torch.randperm(N // 128, generator=cpu_gen).tolist() \
+            if fused else list(range(N // 128))
+        cases.append((name, a, b, r, perm, ops.device_perm(perm, DEV),
+                      ops.prepare_weight(b)))
+    rk.reset_launch_count()
+    outs = [ops.rir_matmul(a, b, perm_t, residual=r, planes=planes)
+            for _, a, b, r, _, perm_t, planes in cases]
+    torch.cuda.synchronize()
+    launches = {d: rk.launch_count(d) for d in rk.DESIGNS}
+    if launches[rk.TF32X3] != len(cases) or launches[rk.SIMT]:
+        raise AssertionError(f"bert: launches by design {launches}, not "
+                             f"{len(cases)} on {rk.TF32X3}")
+    rows = []
+    tot = {"ms": 0.0, "simt_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "bound_tf32x3_ms": 0.0, "op_ms": 0.0, "byte_ms": 0.0,
+           "gflop": 0.0, "max_abs_err": 0.0}
+    for (name, a, b, r, perm, perm_t, planes), y in zip(cases, outs):
+        K, N = b.shape
+        err = check_close(f"bert {name}", y, ref.rir_matmul(
+            a, b, perm, 128, residual=r), TOL["f32"], TOL["f32"])
+        cut = rk.launch_plan(M, K, N, 128)
+        # the SIMT design's cut of this GEMM (the cut the rule gives where
+        # the design is SIMT, as for bf16)
+        simt = rk.launch_plan(M, K, N, 128, torch.bfloat16)
+        work = rk.work(M, K, N, 4, r is not None, N // 128,
+                       design=cut.design)
+        ms, seen = kernel_ms(lambda: ops.rir_matmul(
+            a, b, perm_t, residual=r, planes=planes), cut.kernels, iters=20)
+        simt_ms, _ = kernel_ms(lambda: rk._launch(
+            a, b, perm_t, r, 128, simt), simt.kernels, iters=20)
+        # the bound at the tensor cores' TF32 peak, and at the design's
+        # own ceiling: three TF32 products an fp32 one
+        op_ms = work.flops / gpu_cost.TF32_PEAK_FLOPS * 1e3
+        byte_ms = work.bytes / gpu_cost.HBM_BYTES_PER_S * 1e3
+        row = {"gemm": name, "M": M, "K": K, "N": N,
+               "residual": r is not None, "design": cut.design,
+               "kernel_ms": ms, "device_kernels": seen,
+               "tflops": work.flops / ms / 1e9, "simt_ms": simt_ms,
+               "library_ms": queued_ms(lambda: torch.matmul(a, b), iters=20,
+                                       warmup=3),
+               "bound_ms": max(op_ms, byte_ms),
+               "bound_tf32x3_ms": gpu_cost.bound_ms(work)["bound_ms"],
+               "max_abs_err": err}
+        rows.append(row)
+        log("[kernel] " + json.dumps(row))
+        for key in ("simt_ms", "library_ms", "bound_ms", "bound_tf32x3_ms"):
+            tot[key] += row[key]
+        tot["ms"] += ms
+        tot["op_ms"] += op_ms
+        tot["byte_ms"] += byte_ms
+        tot["gflop"] += work.flops / 1e9
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+    tot["bound_by"] = "operations" if tot["op_ms"] >= tot["byte_ms"] \
+        else "bytes"
+    del cases, outs
+    torch.cuda.empty_cache()
+    log(f"[kernel] bert-large's 4 GEMMs at {M} rows ({tot['gflop']:.1f} "
+        f"GFLOP), device time: 3xTF32 {tot['ms']:.4f} ms, SIMT "
+        f"{tot['simt_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, "
+        f"bound {tot['bound_ms']:.4f} ms at 495 TFLOP/s, "
+        f"{tot['bound_tf32x3_ms']:.4f} ms at 165; launches by design "
+        f"{launches}")
+    return {"gemms": rows, "total": tot, "launches": launches}
 
 
 def phase_networks(torch, api, rk, obs, nets) -> dict:
@@ -4604,6 +4694,8 @@ def main(argv=None) -> int:
     record["hybrid_mesh"] = run("hybrid_mesh", phase_hybrid_mesh, torch, api,
                                 ops, ref, gk, lk)
     record["family"] = run("family", phase_family, torch, api, ops, ref, gk)
+    record["kernel_bert"] = run("kernel_bert", phase_kernel_bert, torch, ops,
+                                ref, rk)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
@@ -4613,14 +4705,22 @@ def main(argv=None) -> int:
     sp = record["split"]["llama_times"]
     hyb = record["hybrid_mesh"]
     fam = record["family"]
+    bert = record["kernel_bert"]["total"]
     kernels = {"kernels": [{
-        "name": "rir_matmul", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES,
+        "name": "rir_matmul", "design": "simt", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES,
         "launches": record["serve"]["batched"]["launches"],
         "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
         "event_ms": tot["event_ms"],
         "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
         "bound_by": tot["bound_by"], "library_ms": tot["library_ms"]}, {
+        "name": "rir_matmul", "design": "tf32x3", "route": "cuda",
+        "source": SOURCE, "replaces": REPLACES,
+        "launches_by_design": record["kernel_bert"]["launches"],
+        "max_abs_err": bert["max_abs_err"], "ms": bert["ms"],
+        "simt_ms": bert["simt_ms"], "bound_ms": bert["bound_ms"],
+        "bound_tf32x3_ms": bert["bound_tf32x3_ms"],
+        "bound_by": bert["bound_by"], "library_ms": bert["library_ms"]}, {
         "name": "gqa_decode", "route": "cuda", "source": GQA_SOURCE,
         "replaces": GQA_REPLACES,
         "launches": record["lm_serve"]["gqa_launches"],

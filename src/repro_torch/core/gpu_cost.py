@@ -5,7 +5,9 @@ count over the card's rate, and the bound the larger of them, with NVIDIA
 H100 SXM5 80GB constants in place of TPU v5e's.  Every rate below is a
 data-sheet figure, not a measurement.  The compute term splits by the
 unit that runs the work: bf16 products on the tensor cores, f32 work on
-the CUDA cores (the port keeps TF32 off, so an f32 product runs there).
+the CUDA cores (the port keeps PyTorch's TF32 off, so an f32 product runs
+there), and the fp32 products of ``rir_matmul``'s 3xTF32 design on the
+tensor cores, three TF32 products each, so at a third of their TF32 rate.
 The collective term splits by mesh axis, because an axis whose groups
 cross nodes rides a different link: an HGX/DGX H100 node holds
 ``NODE_CARDS`` = 8 cards joined by NVLink, and nodes talk through their
@@ -31,17 +33,21 @@ from typing import Dict, Mapping, NamedTuple, Optional
 # NVIDIA H100 SXM5 80GB data sheet (spec-sheet figures, not measurements)
 BF16_PEAK_FLOPS = 989e12       # dense bf16 on the tensor cores
 FP32_PEAK_FLOPS = 67e12        # fp32 on the CUDA cores
+TF32_PEAK_FLOPS = 495e12       # dense tf32 on the tensor cores
 HBM_BYTES_PER_S = 3.35e12      # HBM3
 NVLINK_BYTES_PER_S = 450e9     # NVLink 4: 900 GB/s a card, 450 each way
 NIC_BYTES_PER_S = 50e9         # one 400 Gb/s NIC a card
 NODE_CARDS = 8                 # cards an HGX/DGX H100 node joins by NVLink
 #: the peak of each compute unit a count names
-PEAK_FLOPS = {"bf16": BF16_PEAK_FLOPS, "fp32": FP32_PEAK_FLOPS}
+PEAK_FLOPS = {"bf16": BF16_PEAK_FLOPS, "fp32": FP32_PEAK_FLOPS,
+              "tf32x3": TF32_PEAK_FLOPS / 3}
 
 
 class Work(NamedTuple):
     """One call's operations and bytes, and the unit that runs them
-    (``"bf16"``: the tensor cores, ``"fp32"``: the CUDA cores)."""
+    (``"bf16"``: the tensor cores, ``"fp32"``: the CUDA cores,
+    ``"tf32x3"``: an fp32 product as three TF32 ones on the tensor
+    cores)."""
     flops: float
     bytes: float
     unit: str = "fp32"
@@ -143,7 +149,8 @@ def model_flops(n_params_active: float, tokens: float,
     return (6.0 if train else 2.0) * n_params_active * tokens
 
 
-__all__ = ["BF16_PEAK_FLOPS", "FP32_PEAK_FLOPS", "HBM_BYTES_PER_S",
+__all__ = ["BF16_PEAK_FLOPS", "FP32_PEAK_FLOPS", "TF32_PEAK_FLOPS",
+           "HBM_BYTES_PER_S",
            "NIC_BYTES_PER_S", "NODE_CARDS", "NVLINK_BYTES_PER_S",
            "PEAK_FLOPS", "RooflineTerms", "Work", "axis_bytes_per_s",
            "bound_ms", "model_flops", "terms_from_counts"]

@@ -11,8 +11,9 @@ per-device totals of
   multiply-add), on the tensor cores for a 2-byte type (``"bf16"``) and on
   the CUDA cores otherwise (``"fp32"``: the port keeps TF32 off); plus each
   kernel operator's own count (``kernels.ops.WORK``, the kernel modules'
-  ``work``), recorded under the kernel's name.  A kernel operator is one
-  op here: its plain version's inner ops are not seen.
+  ``work``) on the unit its kernel runs it on, recorded under the kernel's
+  name.  A kernel operator is one op here: its plain version's inner ops
+  are not seen.
 * **bytes**: the operands plus the results of every ``aten`` operator.
   Eager PyTorch runs unfused, so this is its real HBM traffic; it is the
   opposite of ``hlo_cost``'s fusion rule, which counts a fusion's result

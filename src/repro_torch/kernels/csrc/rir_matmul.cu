@@ -7,19 +7,47 @@
 // added in fp32 before the cast.  So the layout the next layer wants is
 // produced by the GEMM's own stores: no relayout pass ever runs.
 //
-// What bounds it on an H100: the twelve ResNet-50 batch-8 plan steps, as the
-// executor shapes them (im2col rows x taps*input width x output width), total
-// 13.2 GFLOP over 0.31 GB of unpadded fp32 operands, about 43 FLOP per byte.
-// fp32 on the CUDA cores (67 TFLOP/s) against 3.35 TB/s turns over at about
-// 20 FLOP per byte, so the network is bound by the fp32 FMA rate; only the
-// 64-to-64 1x1 layer at 56x56 (16 FLOP/byte) is bound by bytes.  Inside an
-// SM an 8x8 register tile asks for 16 floats of shared memory a K step for
-// 64 FMAs, which is about the 128 bytes a clock shared memory delivers at
-// the SM's 128 FMAs a clock; an SM was measured near two thirds of its FMA
+// Two designs, one launch a call, chosen by the wrapper from the dtype, K
+// and N alone (repro_torch/kernels/rir_matmul.py launch_plan, never M):
+//
+// 3xTF32 on the tensor cores (rir_matmul_kernel_tf32x3, fp32, K % 4 == 0,
+// N a multiple of 128, K and N at least 1024: BERT-Large's four encoder
+// GEMMs).  Each fp32 product is three TF32 wgmma products, so its ceiling
+// is 495 / 3 = 165 TFLOP/s, 2.5x the CUDA cores' 67.  BERT-Large at 64
+// sequences (24576 rows) is bound by operations: 170-370 FLOP a byte
+// against a ridge of 49 at 165 TFLOP/s and 3.35 TB/s.  It ran at 91-116
+// TFLOP/s of device time at BERT-Large's four shapes, 55-70% of its
+// ceiling (H100 80GB HBM3, 700 W; PERF.md).  Where the rest goes is not
+// measured (no ncu on that machine); the likely limits are shared memory,
+// which the wgmma B reads (64 bytes a clock at the tensor rate), the TMA
+// fills (32) and the A fragments (11) share at 128 bytes a clock, and each
+// warpgroup's serial split, wait and add between its products, which the
+// other warpgroup's products cover only in part.  Its error against a
+// float64 product at K 1024 and 4096, max |err| / max |ref|: 2.9e-7 to
+// 5.9e-7, the SIMT design's 4.9e-7 to 1.2e-6, a single-pass TF32
+// product's 2.6e-4 to 3.4e-4.  But the tensor cores' truncated sums leave
+// a shrink: every output about 1.84e-7 of its value toward zero at each of
+// BERT-Large's shapes (the SIMT design's and the split's alone below
+// 1e-9), one sign everywhere, so a chain of GEMMs adds it up where
+// round-to-nearest errors only random-walk: 9.0e-6 over BERT-Large's 96
+// layers, against the SIMT design's 3.4e-6 rms error there (PERF.md).  Its
+// own comment, below, gives the design.
+//
+// SIMT on the CUDA cores (rir_matmul_kernel<T, TN, AMODE>: bf16, and fp32
+// where the 3xTF32 design does not run: ResNet-50's and MobileNet-V3's
+// layers, whose short grids it fills by split-K).  What bounds it: the
+// twelve ResNet-50 batch-8 plan steps, as the executor shapes them (im2col
+// rows x taps*input width x output width), total 13.2 GFLOP over 0.31 GB
+// of unpadded fp32 operands, about 43 FLOP per byte; fp32 on the CUDA
+// cores (67 TFLOP/s) against 3.35 TB/s turns over at about 20 FLOP per
+// byte, so the network is bound by the fp32 FMA rate; only the 64-to-64
+// 1x1 layer at 56x56 (16 FLOP/byte) is bound by bytes.  Inside an SM an
+// 8x8 register tile asks for 16 floats of shared memory a K step for 64
+// FMAs, which is about the 128 bytes a clock shared memory delivers at the
+// SM's 128 FMAs a clock; an SM was measured near two thirds of its FMA
 // rate.  Past that, what the card does with the steps is a matter of
 // filling its 132 SMs: the deep steps have few rows and long K walks.
-//
-// What this design does about it:
+// What the SIMT design does about it:
 // - A thread accumulates an 8x8 register tile, two 4-row by two 4-column
 //   halves: a K step is 64 FMAs for four 8-byte loads of A (each two K
 //   steps of one row) and two 16-byte loads of B.
@@ -45,27 +73,27 @@
 // - The epilogue reads a thread's two perm slots once and stores 16 bytes
 //   (8 in bf16) at a time.
 //
-// Split-K invariant: a request's output is bit-identical served alone or in
-// a batch.  Every output element is a sum over splits, in split order, of
-// one fmaf chain a split over its K range in order; the tile, the splits
-// and their K ranges are chosen from K and N alone
-// (repro_torch/kernels/rir_matmul.py launch_plan, which the wrapper passes
-// in), never from M, and nothing else a row computes depends on which rows
+// Batch invariance, both designs: a request's output is bit-identical
+// served alone or in a batch.  Every output element is a sum taken in an
+// order fixed by K and N (SIMT: over splits, in split order, of one fmaf
+// chain a split over its K range in order; 3xTF32: one accumulator over K
+// slices in order), and nothing else a row computes depends on which rows
 // share the launch.
 //
-// No tensor cores, on purpose: TF32 keeps about 3 decimal digits, and the
-// path's tolerances are fp32 ones (2e-4 for the kernel, rtol 1e-4 / atol
-// 1e-3 for whole networks).  A 3xTF32 wgmma design could pass the card's
-// fp32 CUDA-core rate at near-fp32 accuracy; it departs from the fp32-FMA
-// ground rule and waits for a change that measures its error.
+// Single-pass TF32 and bf16 products stay out of the fp32 path: TF32 keeps
+// about 3 decimal digits, and the path's tolerances are fp32 ones (2e-4 for
+// the kernel, rtol 1e-4 / atol 1e-3 for whole networks).
 //
-// Ragged M and K are masked in the loads (zero-filled) and M in the stores;
-// N must be a multiple of block_n and block_n of 64, so a 4-column group
-// never crosses a block.  b, the residual and out must be 16-byte aligned.
+// SIMT: ragged M and K are masked in the loads (zero-filled) and M in the
+// stores; N must be a multiple of block_n and block_n of 64, so a 4-column
+// group never crosses a block.  b, the residual and out must be 16-byte
+// aligned.  3xTF32: the same, with a 16-byte aligned too (TMA).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o librir_matmul.so rir_matmul.cu
 // Plain C interface, bound with ctypes (repro_torch/kernels/rir_matmul.py).
+#include <cuda.h>           // CUtensorMap; the CUDA driver call that
+#include <cudaTypedefs.h>   // encodes one is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -377,6 +405,354 @@ rir_splitk_reduce_kernel(const float* __restrict__ ws,
   }
 }
 
+// ------------------------------------------------------------ 3xTF32 design
+// An fp32 GEMM on the tensor cores at fp32's accuracy.  Each operand x is
+// split as hi = tf32(x), lo = tf32(x - hi) (cvt.rna: to nearest, ties away
+// from zero), and a k-step sums a_lo b_hi + a_hi b_lo + a_hi b_hi, small
+// terms first: only a_lo b_lo (about 2^-22 of the product) and lo's own
+// rounding are dropped.  The tensor cores truncate their fp32 sums, which
+// over a K walk adds up (with one wgmma accumulator through K, the error
+// grew with K: 8e-6 of max |ref| at K 1024, 3e-5 at 4096, 10-60x the SIMT
+// design's); so they sum one 32-deep K slice from zero, and each slice's
+// partial is added into the tile's accumulators by FADD, rounded to
+// nearest.
+//
+// B, the weight, comes split once, when the network is prepared: two planes
+// of N x K (K-major: tf32 wgmma reads only K-major operands from shared
+// memory), hi above lo, one (2N, K) fp32 tensor.  A, the activations, is
+// split inside the kernel, in registers, from the tile TMA brought in.
+//
+// A CTA is persistent (one an SM) and walks 128 x 128 output tiles, N
+// fastest.  Its producer warpgroup's one thread keeps a 4-stage ring of
+// 32-deep K slices in flight by TMA (A 128 x 32, B hi and B lo 128 x 32,
+// each 16 KB, 128-byte swizzle), one full and one empty mbarrier a stage.
+// Two consumer warpgroups take 64 rows each: a thread reads its 16 A
+// values of the slice out of the swizzled tile as wgmma's register
+// fragment (4 k-steps of 8), splits them, and issues 12
+// wgmma.m64n128k8.f32.tf32.tf32 with B hi / B lo from shared memory, then
+// waits for them, frees the stage and adds the slice's partial in.  The
+// consumers hold 232 registers each (setmaxnreg), the producer 40.  While
+// one warpgroup loads and splits, the other's products run; while the
+// consumers store a tile, the producer loads the next one.  The RIR
+// epilogue is the SIMT design's: a lane pair trades halves so each thread
+// stores 4 consecutive columns (16 bytes) of one row at rir_col, the
+// residual read at the same place and added in fp32; rows past M are not
+// stored.
+//
+// Every output element is one accumulator over k-steps in order, three
+// products a k-step in a fixed order; the tile and the K order depend on K
+// and N alone, never on M or on which CTA takes the tile, so a row's bits
+// do not depend on the rows it is launched with.
+namespace tc {
+
+constexpr int kBM = 128;                  // CTA tile rows: two warpgroups
+constexpr int kBN = 128;                  // CTA tile columns (wgmma N)
+constexpr int kBK = 32;                   // a K slice: one 128-byte row
+constexpr int kRingStages = 4;
+constexpr int kConsumers = 2;             // warpgroups of 64 rows
+constexpr int kBlockThreads = 128 * (kConsumers + 1);
+constexpr int kTileBytes = kBM * kBK * 4;             // A, B hi, B lo alike
+constexpr int kStageBytes = 3 * kTileBytes;
+constexpr int kSmemBytes =
+    kRingStages * kStageBytes + 2 * kRingStages * 8 + 1024;
+static_assert(kBM == kBN, "A and the B planes share one TMA box");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
+}
+// spins until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+// a 2-D box of the tensor map at (c0 innermost, c1) into shared memory
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+// round to the nearest tf32, ties away from zero, as an fp32 bit pattern
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+// a K-major operand tile of 128-byte rows, 128-byte swizzle, 8-row groups
+// 1024 bytes apart (the tile starts on a 1024-byte boundary)
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |         // leading offset (unused)
+         (static_cast<uint64_t>(1024 >> 4) << 32) | // stride: 8 rows
+         (static_cast<uint64_t>(1) << 62);          // 128-byte swizzle
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keeps the compiler from moving reads or writes of the accumulators
+// across the asynchronous products
+__device__ __forceinline__ void fence_acc(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// d (64 x 128, fp32) = a (64 x 8 tf32, registers) * b (8 x 128 tf32, the
+// K-major tile at desc) + (acc ? d : 0)
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t* a,
+                                           uint64_t desc, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(acc));
+}
+
+__device__ __forceinline__ uint32_t full_bar(uint32_t bars, int s) {
+  return bars + 8 * s;
+}
+__device__ __forceinline__ uint32_t empty_bar(uint32_t bars, int s) {
+  return bars + 8 * (kRingStages + s);
+}
+
+}  // namespace tc
+
+// grid: min(tiles, SMs) persistent CTAs; block: tc::kBlockThreads (two
+// consumer warpgroups, then the producer's); dynamic shared memory:
+// tc::kSmemBytes.
+// a_map: A (M x K) in boxes of 128 rows x 32; b_map: the planes (2N x K),
+// B hi rows [0, N), B lo rows [N, 2N).  Ragged M and K come in zero-filled
+// from TMA.
+__global__ void __launch_bounds__(tc::kBlockThreads, 1)
+rir_matmul_kernel_tf32x3(const __grid_constant__ CUtensorMap a_map,
+                         const __grid_constant__ CUtensorMap b_map,
+                         const int* __restrict__ perm,
+                         const float* __restrict__ residual,
+                         float* __restrict__ out, int M, int K, int N,
+                         int block_n) {
+  using namespace tc;
+  extern __shared__ __align__(1024) unsigned char tc_smem[];
+  const uint32_t raw = smem_u32(tc_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;   // swizzled tiles: 1 KB
+  const unsigned char* ring = tc_smem + (base - raw);
+  const uint32_t bars = base + kRingStages * kStageBytes;
+  const int n_tiles = N / kBN;
+  const int tiles = ((M + kBM - 1) / kBM) * n_tiles;
+  const int k_tiles = (K + kBK - 1) / kBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kRingStages; ++s) {
+      mbar_init(full_bar(bars, s), 1);
+      mbar_init(empty_bar(bars, s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {                  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x % 128 == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles) * kBM;
+        const int n0 = (tile % n_tiles) * kBN;
+        for (int kt = 0; kt < k_tiles; ++kt) {
+          mbar_wait(empty_bar(bars, stage), phase ^ 1);
+          const uint32_t full = full_bar(bars, stage);
+          const uint32_t st = base + stage * kStageBytes;
+          mbar_expect_tx(full, kStageBytes);
+          tma_load(st, &a_map, kt * kBK, m0, full);
+          tma_load(st + kTileBytes, &b_map, kt * kBK, n0, full);
+          tma_load(st + 2 * kTileBytes, &b_map, kt * kBK, N + n0, full);
+          if (++stage == kRingStages) { stage = 0; phase ^= 1; }
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  // a consumer: rows wg * 64 + warp * 16 + g (+ 8) of the tile, wgmma's
+  // register layout (g = lane / 4, t = lane % 4; a k-step's values
+  // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4))
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = wg * 64 + (threadIdx.x % 128) / 32 * 16 + g;
+  // byte offsets of the 16 values inside a swizzled A tile: 16-byte chunk
+  // c of row r lies at chunk c ^ (r % 8)
+  uint32_t a_off[16];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int v = 0; v < 4; ++v) {
+      const int r = row + 8 * (v & 1);
+      const int c = 8 * j + t + 4 * (v >> 1);
+      a_off[4 * j + v] =
+          r * 128 + ((((c >> 2) ^ (r & 7)) << 4) | ((c & 3) << 2));
+    }
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int m0 = (tile / n_tiles) * kBM;
+    const int n0 = (tile % n_tiles) * kBN;
+    // the tile's sums, each slice's partial added in rounded to nearest:
+    // the tensor cores truncate their own fp32 sums, so they carry one
+    // slice (12 products) at a time, from zero
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.0f;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      mbar_wait(full_bar(bars, stage), phase);
+      const uint32_t st = base + stage * kStageBytes;
+      const unsigned char* at = ring + stage * kStageBytes;
+      uint32_t hi[16], lo[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const float x = *reinterpret_cast<const float*>(at + a_off[i]);
+        hi[i] = tf32_rna(x);
+        lo[i] = tf32_rna(x - __uint_as_float(hi[i]));
+      }
+      fence_acc(part);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {        // k-steps of 8: 32 bytes each
+        const uint64_t b_hi = smem_desc(st + kTileBytes + 32 * j);
+        const uint64_t b_lo = smem_desc(st + 2 * kTileBytes + 32 * j);
+        wgmma_tf32(part, lo + 4 * j, b_hi, j > 0);
+        wgmma_tf32(part, hi + 4 * j, b_lo, 1);
+        wgmma_tf32(part, hi + 4 * j, b_hi, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_acc(part);
+      if (threadIdx.x % 128 == 0) mbar_arrive(empty_bar(bars, stage));
+      if (++stage == kRingStages) { stage = 0; phase ^= 1; }
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    // the epilogue: acc[4j + e] holds (row g + 8 (e / 2), column 8j + 2t +
+    // e % 2).  Lanes t and t ^ 1 trade halves: an even t stores row g,
+    // columns 8j + 2t .. + 3; an odd t row g + 8, columns 8j + 2t - 2 .. + 1
+    const bool odd = t & 1;
+    const int m = m0 + row + (odd ? 8 : 0);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const float s0 = odd ? acc[4 * j] : acc[4 * j + 2];
+      const float s1 = odd ? acc[4 * j + 1] : acc[4 * j + 3];
+      const float r0 = __shfl_xor_sync(0xffffffffu, s0, 1);
+      const float r1 = __shfl_xor_sync(0xffffffffu, s1, 1);
+      const float4 v = odd ? make_float4(r0, r1, acc[4 * j + 2],
+                                         acc[4 * j + 3])
+                           : make_float4(acc[4 * j], acc[4 * j + 1], r0, r1);
+      if (m < M)
+        store_rir(out, residual,
+                  static_cast<size_t>(m) * N +
+                      rir_col(perm, n0 + 8 * j + 2 * (t & ~1), N, block_n),
+                  v);
+    }
+  }
+}
+
+namespace tc {
+
+// cuTensorMapEncodeTiled, from the CUDA driver the runtime has loaded
+PFN_cuTensorMapEncodeTiled_v12000 encode_fn() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) != cudaSuccess ||
+        q != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }();
+  return fn;
+}
+
+// a row-major fp32 (rows x K) tensor in boxes of 128 rows x 32, 128-byte
+// swizzle, out-of-bounds elements read as zero
+bool tile_map(CUtensorMap* map, const float* p, int rows, int K) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = encode_fn();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(K),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(K) * 4};
+  const cuuint32_t box[2] = {kBK, kBM};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(p), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  return n;
+}
+
+}  // namespace tc
+
 template <typename T, int TN, int AMODE>
 cudaError_t launch_tile(const T* a, const T* b, const int* perm,
                         const T* residual, T* out, float* ws, int M, int K,
@@ -401,6 +777,32 @@ cudaError_t launch_tile(const T* a, const T* b, const int* perm,
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+cudaError_t launch_tf32x3(const float* a, const float* planes,
+                          const int* perm, const float* residual, float* out,
+                          int M, int K, int N, int block_n, cudaStream_t st) {
+  using namespace tc;
+  if (M <= 0 || K <= 0 || K % 4 != 0 || N <= 0 || N % kBN != 0 ||
+      block_n <= 0 || block_n % 64 != 0 || N % block_n != 0 ||
+      !aligned16(a) || !aligned16(planes) || !aligned16(out) ||
+      (residual != nullptr && !aligned16(residual)))
+    return cudaErrorInvalidValue;
+  CUtensorMap a_map, b_map;
+  if (!tile_map(&a_map, a, M, K) || !tile_map(&b_map, planes, 2 * N, K))
+    return cudaErrorInvalidValue;
+  const int sms = sm_count();
+  if (sms <= 0) return cudaErrorInvalidDevice;
+  cudaError_t err = cudaFuncSetAttribute(
+      rir_matmul_kernel_tf32x3, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return err;
+  const long long tiles = static_cast<long long>((M - 1) / kBM + 1) *
+                          (N / kBN);
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  rir_matmul_kernel_tf32x3<<<grid, kBlockThreads, kSmemBytes, st>>>(
+      a_map, b_map, perm, residual, out, M, K, N, block_n);
+  return cudaGetLastError();
 }
 
 template <typename T, int TN>
@@ -470,4 +872,20 @@ extern "C" int rir_matmul_bf16(const void* a, const void* b, const void* perm,
                                int splits, void* stream) {
   return launch<__nv_bfloat16>(a, b, perm, residual, out, ws, M, K, N,
                                block_n, tile_n, splits, stream);
+}
+
+// The 3xTF32 design: a (M, K) and out (M, N) as above, K % 4 == 0 (TMA's
+// 16-byte row stride), N % 128 == 0; planes (2N, K) fp32, row-major: B's hi
+// plane (tf32(b), transposed) above its lo plane (tf32(b - hi), transposed),
+// from rir_matmul.weight_planes.  a, planes, out and residual 16-byte
+// aligned.  Returns the cudaError_t of the launch (0 on success).
+extern "C" int rir_matmul_tf32x3(const void* a, const void* planes,
+                                 const void* perm, const void* residual,
+                                 void* out, int M, int K, int N, int block_n,
+                                 void* stream) {
+  return static_cast<int>(launch_tf32x3(
+      static_cast<const float*>(a), static_cast<const float*>(planes),
+      static_cast<const int*>(perm), static_cast<const float*>(residual),
+      static_cast<float*>(out), M, K, N, block_n,
+      static_cast<cudaStream_t>(stream)));
 }

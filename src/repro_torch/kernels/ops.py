@@ -48,7 +48,8 @@ from .birrd_reduce import (_out_port_mask, _program_codes, _routed_configs,
                            birrd_switch_cuda, program_adds)
 from .gqa_decode import gqa_decode_cuda, gqa_decode_partial_cuda
 from .linear_scan import linear_scan_cuda
-from .rir_matmul import TILE_N, register_perm, rir_matmul_cuda
+from .rir_matmul import (TILE_N, prepare_weight, register_perm,
+                         rir_matmul_cuda)
 
 Perm = Union[Sequence[int], torch.Tensor, None]
 #: the ``torch.profiler`` range around ``linear_scan``'s backward
@@ -97,39 +98,60 @@ def _define(schema: str, impl: Callable, fake: Callable):
 
 
 # ------------------------------------------------------------- rir_matmul
-def _rir_matmul_impl(a: torch.Tensor, b: torch.Tensor, perm: torch.Tensor,
-                     residual: Optional[torch.Tensor], block_n: int
+def _weight_n(b: Optional[torch.Tensor], planes: Optional[torch.Tensor]
+              ) -> int:
+    """The weight's N, from ``b`` or, where it is None, its planes."""
+    if b is not None:
+        return b.shape[1]
+    if planes is None:
+        raise ValueError("rir_matmul needs the weight b or its 3xTF32 planes")
+    return planes.shape[0] // 2
+
+
+def _rir_matmul_impl(a: torch.Tensor, b: Optional[torch.Tensor],
+                     perm: torch.Tensor, residual: Optional[torch.Tensor],
+                     block_n: int, planes: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     _device_check("rir_matmul", a)
     if a.device.type == "cpu":
+        if b is None:
+            raise ValueError("rir_matmul on the CPU runs the plain version, "
+                             "which reads the weight b, not its planes")
         p = tuple(int(x) for x in perm.tolist())
         return ref.rir_matmul(a, b, _check_perm(p, len(p)), block_n,
                               residual=residual)
-    return rir_matmul_cuda(a, b, perm, residual=residual, block_n=block_n)
+    return rir_matmul_cuda(a, b, perm, residual=residual, block_n=block_n,
+                           planes=planes)
 
 
-def _rir_matmul_fake(a, b, perm, residual, block_n):
-    return a.new_empty((a.shape[0], b.shape[1]))
+def _rir_matmul_fake(a, b, perm, residual, block_n, planes=None):
+    return a.new_empty((a.shape[0], _weight_n(b, planes)))
 
 
-_rir_op = _define("rir_matmul(Tensor a, Tensor b, Tensor perm, "
-                  "Tensor? residual, int block_n) -> Tensor",
-                  _rir_matmul_impl, _rir_matmul_fake)
+_rir_op = _define("rir_matmul(Tensor a, Tensor? b, Tensor perm, "
+                  "Tensor? residual, int block_n, Tensor? planes=None) "
+                  "-> Tensor", _rir_matmul_impl, _rir_matmul_fake)
 
 
-def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
-               *, residual: Optional[torch.Tensor] = None,
-               block_n: int = 128) -> torch.Tensor:
+def rir_matmul(a: torch.Tensor, b: Optional[torch.Tensor],
+               out_block_perm: Perm = None, *,
+               residual: Optional[torch.Tensor] = None,
+               block_n: int = 128,
+               planes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``a @ b`` with output N-block ``j`` stored at block slot ``perm[j]``.
 
     ``out_block_perm``: a sequence, a ``device_perm`` tensor on ``a``'s
     device (as the executor passes it), or None for the identity.
     ``residual`` (M, N) is stored in the output block order and added in the
-    epilogue.  N must be a multiple of ``block_n``.  The JAX signature's
-    ``block_m``/``block_k`` grid hints have no counterpart: the CUDA kernel
-    tiles M and K on its own, so that its summation order depends on neither.
+    epilogue.  N must be a multiple of ``block_n``.  ``planes``: ``b``'s
+    3xTF32 planes from ``prepare_weight``, which a GEMM on that design
+    reads in ``b``'s place (with them ``b`` may be None on the card; a
+    3xTF32 launch without them splits ``b`` for that call).  The JAX
+    signature's ``block_m``/``block_k`` grid hints have no counterpart: the
+    CUDA kernel tiles M and K on its own, so that its summation order
+    depends on neither.
     """
-    N = b.shape[1]
+    N = _weight_n(b, planes)
     if N % block_n:
         raise ValueError(f"N={N} is not a multiple of block_n={block_n}")
     n_blocks = N // block_n
@@ -142,7 +164,7 @@ def rir_matmul(a: torch.Tensor, b: torch.Tensor, out_block_perm: Perm = None,
     else:
         perm_t = device_perm(range(n_blocks) if out_block_perm is None
                              else out_block_perm, a.device)
-    return _rir_op(a, b, perm_t, residual, block_n)
+    return _rir_op(a, b, perm_t, residual, block_n, planes)
 
 
 # ----------------------------------------------------------------- BIRRD
@@ -348,9 +370,9 @@ def linear_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 # ------------------------------------------------------------------ work
-def _rir_work(a, b, perm, residual, block_n) -> Work:
+def _rir_work(a, b, perm, residual, block_n, planes=None) -> Work:
     M, K = a.shape
-    N = b.shape[1]
+    N = _weight_n(b, planes)
     return _rir.work(M, K, N, a.element_size(), residual is not None,
                      N // block_n)
 
@@ -405,6 +427,6 @@ WORK: Dict[str, Tuple[str, Callable[..., Work]]] = {
 }
 
 
-__all__ = ["rir_matmul", "device_perm", "birrd_apply", "birrd_apply_p",
-           "birrd_reduce", "gqa_decode", "gqa_decode_partial", "linear_scan",
-           "TILE_N", "WORK"]
+__all__ = ["rir_matmul", "device_perm", "prepare_weight", "birrd_apply",
+           "birrd_apply_p", "birrd_reduce", "gqa_decode",
+           "gqa_decode_partial", "linear_scan", "TILE_N", "WORK"]

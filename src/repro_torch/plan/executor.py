@@ -307,7 +307,7 @@ class PreparedPlan:
         # blocks has one block (nothing to permute): its weight is padded to
         # the kernel's tile and launched as one block that wide, as the
         # network path does, and the output is cut back to its width
-        self.w_eff, self.block_n = [], []
+        self.w_eff, self.planes, self.block_n = [], [], []
         for i, w in enumerate(weights):
             w = _tensor(w).to(self.device)
             if len(self.perms[i]) > 1:
@@ -317,7 +317,12 @@ class PreparedPlan:
                 self.block_n.append(w.shape[1])
             else:
                 self.block_n.append(block)
-            self.w_eff.append(w.contiguous())
+            # where the step takes the 3xTF32 design its launch reads only
+            # the weight's split planes, made once here: the fp32 weight is
+            # not kept (None)
+            w = w.contiguous()
+            self.planes.append(ops.prepare_weight(w))
+            self.w_eff.append(w if self.planes[-1] is None else None)
         self.widths = [int(np.shape(w)[1]) for w in weights]
         self.perm_dev = [ops.device_perm(p, self.device) if len(p) > 1
                          else None for p in self.perms]
@@ -347,7 +352,8 @@ class PreparedPlan:
                     m0 = obs.Mark(self.device)
                 cur = ops.rir_matmul(cur.contiguous(), w_eff,
                                      self.perm_dev[i + 1],
-                                     block_n=self.block_n[i])
+                                     block_n=self.block_n[i],
+                                     planes=self.planes[i])
                 if cur.shape[1] != self.widths[i]:
                     cur = cur[:, :self.widths[i]]
                 if activation is not None and i < len(plan.steps) - 1:
@@ -549,7 +555,8 @@ class _NetStep:
 
     wl: object
     row_map: Optional[torch.Tensor]  # flat int64 rows; None = pure GEMM
-    w_eff: torch.Tensor              # (K, M_pad) kernel-ready weight
+    # (K, M_pad) kernel-ready weight; None where ``planes`` stand for it
+    w_eff: Optional[torch.Tensor]
     block_n: int                     # the kernel's output block width
     k_width: int                     # taps * in_width
     rows_out: int
@@ -558,6 +565,8 @@ class _NetStep:
     joins: Tuple[_JoinExec, ...]
     out_shape: Tuple[int, int, int, int]       # (N, P, Q, M)
     bias: Optional[torch.Tensor] = None   # (M,), stored in out_perm order
+    # w_eff's 3xTF32 planes (2 M_pad, K), where the step takes that design
+    planes: Optional[torch.Tensor] = None
 
 
 class PreparedNetwork:
@@ -652,8 +661,14 @@ class PreparedNetwork:
                 joins.append(_JoinExec(
                     src=src, fused=fused, src_perm=self.perms[src + 1],
                     src_shape=(swl.N, swl.P, swl.Q, swl.M)))
+            w_eff = w_eff.to(dev).contiguous()
+            # where the layer takes the 3xTF32 design its launch reads only
+            # the weight's split planes, made once here, outside any served
+            # batch: the fp32 weight is not kept on the card
+            planes = ops.prepare_weight(w_eff)
             self.steps.append(_NetStep(
-                wl=wl, row_map=row_map, w_eff=w_eff.to(dev).contiguous(),
+                wl=wl, row_map=row_map,
+                w_eff=w_eff if planes is None else None, planes=planes,
                 block_n=block_n, k_width=wl.R * wl.S * in_width,
                 rows_out=wl.N * wl.P * wl.Q, out_perm=out_perm,
                 perm_dev=(ops.device_perm(out_perm, dev)
@@ -792,7 +807,7 @@ class PreparedNetwork:
                     fused_res = _pad_cols(fused_res, st.block_n).contiguous()
                 y = ops.rir_matmul(patches.contiguous(), st.w_eff,
                                    st.perm_dev, residual=fused_res,
-                                   block_n=st.block_n)
+                                   block_n=st.block_n, planes=st.planes)
                 y = y[:, :st.wl.M]
                 if st.bias is not None:
                     y = y + st.bias[None, :]

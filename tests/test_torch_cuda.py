@@ -5,18 +5,20 @@ Run on a machine with an NVIDIA card and ``nvcc``:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Each kernel is held against its plain PyTorch version on the same device:
-``rir_matmul`` at 2e-4 for f32 (fp32 sums in another order) and 2e-2 for
-bf16, ``gqa_decode`` at the JAX sweep's 5e-4 / 3e-2 (softmax sums in
-another order, merged across splits), ``linear_scan`` at 1e-4 / 2e-2
-against the plain chunked version (the same algorithm, sums in another
-order) and at the JAX sweep's 3e-3 against the stepwise recurrence,
-``birrd_apply``'s switch kernel bit for bit against the plain switch walk
-and stage loop on routed programs (every stage an exact copy or one f32 sum
-of two values), its dense kernel at 1e-5 on dense stage matrices.  Served
-outputs, batched against the same requests one at a time, agree bit for
-bit, and so do ``rir_matmul``'s rows alone and in a batch at split-K
-shapes.  The MoE block and whisper's decode (both through ``gqa_decode``
-on the card) are held against the CPU in f32.
+``rir_matmul`` at 2e-4 for f32 (fp32 sums in another order), its 3xTF32
+design too, and 2e-2 for bf16, ``gqa_decode`` at the JAX sweep's 5e-4 /
+3e-2 (softmax sums in another order, merged across splits),
+``linear_scan`` at 1e-4 / 2e-2 against the plain chunked version (the same
+algorithm, sums in another order) and at the JAX sweep's 3e-3 against the
+stepwise recurrence, ``birrd_apply``'s switch kernel bit for bit against
+the plain switch walk and stage loop on routed programs (every stage an
+exact copy or one f32 sum of two values), its dense kernel at 1e-5 on
+dense stage matrices.  Served outputs, batched against the same requests
+one at a time, agree bit for bit, and so do ``rir_matmul``'s rows alone
+and in a batch at split-K shapes and on the 3xTF32 design, whose error
+against a float64 product is held to at most twice the SIMT design's and
+its lean toward zero to 4e-7.  The MoE block and whisper's decode (both
+through ``gqa_decode`` on the card) are held against the CPU in f32.
 """
 import numpy as np
 import pytest
@@ -170,6 +172,183 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         with pytest.raises(RuntimeError, match="launch failed"):
             rk._launch(a, torch.zeros(16, 128, device=cuda), perm, None, 128,
                        cut)
+
+
+# BERT-Large's four encoder GEMMs (K, N): QKV, attn-out, FFN up, FFN down
+BERT_KN = [(1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)]
+
+
+@pytest.mark.parametrize("k,n", BERT_KN)
+@pytest.mark.parametrize("m", [768, 77, 1000])
+def test_tf32x3_matches_plain_on_card(cuda, m, k, n):
+    """BERT-Large's four GEMMs run on the 3xTF32 design, two sequences'
+    rows and ragged M alike, with a residual and a perm: within 2e-4 of
+    the plain version, one launch of that design a call."""
+    gen = torch.Generator().manual_seed(m + k + n)
+    a = torch.randn(m, k, generator=gen).to(cuda)
+    b = torch.randn(k, n, generator=gen).to(cuda) / k ** 0.5
+    r = torch.randn(m, n, generator=gen).to(cuda)
+    perm = torch.randperm(n // 128, generator=gen).tolist()
+    assert rk.launch_plan(m, k, n, 128).design == rk.TF32X3
+    before = rk.launch_count(rk.TF32X3), rk.launch_count(rk.SIMT)
+    y = ops.rir_matmul(a, b, perm, residual=r)
+    torch.cuda.synchronize()
+    assert (rk.launch_count(rk.TF32X3), rk.launch_count(rk.SIMT)) == \
+        (before[0] + 1, before[1])
+    want = ref.rir_matmul(a, b, perm, 128, residual=r)
+    torch.testing.assert_close(y, want, rtol=2e-4, atol=2e-4)
+
+
+def test_tf32x3_rows_do_not_depend_on_batch(cuda):
+    """At FFN-down's shape (K 4096, N 1024) on the 3xTF32 design a row's
+    output is bit-identical whatever other rows share the call."""
+    gen = torch.Generator().manual_seed(9)
+    a = torch.randn(600, 4096, generator=gen).to(cuda)
+    b = torch.randn(4096, 1024, generator=gen).to(cuda)
+    r = torch.randn(600, 1024, generator=gen).to(cuda)
+    perm = (5, 2, 7, 0, 1, 6, 3, 4)
+    assert rk.launch_plan(600, 4096, 1024, 128).design == rk.TF32X3
+    full = ops.rir_matmul(a, b, perm, residual=r)
+    for lo, hi in ((0, 7), (1, 8), (130, 390), (599, 600)):
+        head = ops.rir_matmul(a[lo:hi].contiguous(), b, perm,
+                              residual=r[lo:hi].contiguous())
+        assert torch.equal(full[lo:hi], head)
+
+
+@pytest.mark.parametrize("k", [1024, 4096])
+def test_tf32x3_error_is_the_fp32_kernels(cuda, k):
+    """Against a float64 product, the 3xTF32 design's max |err| / max
+    |ref| is at most twice the SIMT design's (fp32 FMAs) on the same
+    inputs, and a single-pass TF32 product (``torch.matmul`` with TF32
+    on) reads at least 10x above that limit."""
+    gen = torch.Generator().manual_seed(k)
+    a = torch.randn(512, k, generator=gen).to(cuda)
+    b = torch.randn(k, 1024, generator=gen).to(cuda)
+    want = a.double() @ b.double()
+    scale = want.abs().max()
+    perm = ops.device_perm(range(8), cuda)
+    simt = rk.launch_plan(512, k, 1024, 128, torch.bfloat16)
+    assert simt.design == rk.SIMT
+    err = {}
+    for name, cut in (("tf32x3", rk.launch_plan(512, k, 1024, 128)),
+                      ("simt", simt)):
+        y = rk._launch(a, b, perm, None, 128, cut)
+        err[name] = ((y.double() - want).abs().max() / scale).item()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        y = torch.matmul(a, b)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    err["tf32"] = ((y.double() - want).abs().max() / scale).item()
+    assert err["tf32x3"] <= 2 * err["simt"], err
+    assert err["tf32"] >= 10 * 2 * err["simt"], err
+
+
+def test_tf32x3_lean_toward_zero_is_the_tensor_cores(cuda):
+    """The 3xTF32 design's outputs lean toward zero: the least-squares fit
+    got = (1 + scale) ref against a float64 product reads a scale of at
+    most 4e-7 in size (-1.84e-7 measured at BERT-Large's four shapes),
+    where the split alone, its three products exact in float64, reads
+    under 1e-9: the lean is the tensor cores' truncated sums, not the
+    split.  A chain of GEMMs adds it up (PERF.md)."""
+    gen = torch.Generator().manual_seed(12)
+    a = torch.randn(1024, 1024, generator=gen).to(cuda)
+    b = (torch.randn(1024, 1024, generator=gen) / 32).to(cuda)
+    want = a.double() @ b.double()
+
+    def scale(y):
+        d = y.double() - want
+        return ((d * want).sum() / (want * want).sum()).item()
+
+    assert rk.launch_plan(1024, 1024, 1024, 128).design == rk.TF32X3
+    ah, al = (t.double() for t in rk.split_tf32(a))
+    bh, bl = (t.double() for t in rk.split_tf32(b))
+    assert abs(scale(al @ bh + ah @ bl + ah @ bh)) < 1e-9
+    assert abs(scale(ops.rir_matmul(a, b))) <= 4e-7
+
+
+def test_tf32x3_refuses_what_it_does_not_take(cuda):
+    """The 3xTF32 design takes fp32 with K % 4 == 0 and N a multiple of
+    128: forced past ``launch_plan`` onto anything else it raises, and an
+    A that is not 16-byte aligned is copied first and runs."""
+    perm = ops.device_perm((0,), cuda)
+    for k, n, bn in ((1022, 128, 128), (1024, 64, 64), (1024, 192, 64)):
+        a = torch.zeros(8, k, device=cuda)
+        b = torch.zeros(k, n, device=cuda)
+        p = ops.device_perm(range(n // bn), cuda)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rk._launch(a, b, p, None, bn,
+                       rk.LaunchPlan(128, 1, (0, k), rk.TF32X3))
+    with pytest.raises(TypeError, match="float32"):
+        rk._launch(torch.zeros(8, 64, device=cuda, dtype=torch.bfloat16),
+                   torch.zeros(64, 128, device=cuda, dtype=torch.bfloat16),
+                   perm, None, 128, rk.LaunchPlan(128, 1, (0, 64), rk.TF32X3))
+    gen = torch.Generator().manual_seed(4)
+    base = torch.randn(101 * 1024 + 1, generator=gen).to(cuda)
+    a = base[1:].view(101, 1024)
+    b = torch.randn(1024, 1024, generator=gen).to(cuda)
+    assert a.data_ptr() % 16 and rk.takes_tf32x3(1024, 1024)
+    torch.testing.assert_close(ops.rir_matmul(a, b, None, block_n=1024),
+                               ref.rir_matmul(a, b, (0,), 1024),
+                               rtol=2e-4, atol=2e-4)
+
+
+def test_prepared_planes_stand_for_the_weight_on_card(cuda):
+    """``prepare_weight`` splits a weight whose GEMMs take 3xTF32 into the
+    planes ``weight_planes`` gives; a launch handed planes reads them in
+    the weight's place, with the weight or without it, bit for bit the
+    launch that splits the weight itself; the SIMT design will not launch
+    from planes alone, and a weight that stays on SIMT gets none."""
+    gen = torch.Generator().manual_seed(10)
+    a = torch.randn(200, 1024, generator=gen).to(cuda)
+    b = torch.randn(1024, 1024, generator=gen).to(cuda)
+    planes = rk.prepare_weight(b)
+    assert torch.equal(planes, rk.weight_planes(b))
+    y = ops.rir_matmul(a, b)
+    assert torch.equal(ops.rir_matmul(a, None, planes=planes), y)
+    assert torch.equal(ops.rir_matmul(a, b, planes=planes), y)
+    # the planes, not b, are what the launch reads (2b's are exactly 2x)
+    assert torch.equal(ops.rir_matmul(a, b, planes=rk.weight_planes(2 * b)),
+                       2 * y)
+    with pytest.raises(ValueError, match="planes"):
+        ops.rir_matmul(a, b, planes=planes[:1024])
+    small = rk.weight_planes(torch.randn(512, 1024, device=cuda))
+    with pytest.raises(ValueError, match="SIMT"):
+        ops.rir_matmul(torch.randn(8, 512, device=cuda), None, planes=small)
+    assert rk.prepare_weight(torch.zeros(1024, 256, device=cuda)) is None
+    assert rk.prepare_weight(
+        torch.zeros(1024, 1024, device=cuda, dtype=torch.bfloat16)) is None
+
+
+def test_prepared_plan_holds_planes_not_the_weight_on_card(cuda):
+    """A GEMM chain whose last two steps take 3xTF32 (512 -> 1024 -> 2048
+    -> 1024) keeps those steps' planes and not their fp32 weights on the
+    card, launches each step on its design, and matches the chain on the
+    CPU."""
+    from repro_torch.core.dataflow import ConvWorkload
+    from repro_torch.core.layoutloop import EvalConfig
+    from repro_torch.plan import (NetworkPlanner, execute_plan, from_layers,
+                                  prepare_plan)
+    widths = (512, 1024, 2048, 1024)
+    graph = from_layers([
+        ConvWorkload.from_gemm(M=m, N=128, K=k, name=f"l{i}")
+        for i, (k, m) in enumerate(zip(widths[:-1], widths[1:]))], "chain")
+    plan = NetworkPlanner(graph, EvalConfig()).plan()
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(128, widths[0])).astype(np.float32)
+    ws = [(rng.normal(size=(a, b)) / np.sqrt(a)).astype(np.float32)
+          for a, b in zip(widths[:-1], widths[1:])]
+    prepared = prepare_plan(plan, widths[0], ws, device=cuda)
+    assert [p is None for p in prepared.planes] == [True, False, False]
+    assert [w is None for w in prepared.w_eff] == [False, True, True]
+    before = {d: rk.launch_count(d) for d in rk.DESIGNS}
+    y = execute_plan(plan, x, ws, activation=torch.relu, prepared=prepared,
+                     device=cuda)
+    torch.cuda.synchronize()
+    assert {d: rk.launch_count(d) - before[d] for d in rk.DESIGNS} == \
+        {rk.SIMT: 1, rk.TF32X3: 2}
+    want = execute_plan(plan, x, ws, activation=torch.relu, device="cpu")
+    torch.testing.assert_close(y.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
 def test_served_batches_equal_sequential_on_card(cuda):

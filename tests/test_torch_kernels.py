@@ -17,8 +17,10 @@ Pallas ``birrd_apply_p`` on routed programs (each stage an exact copy or
 one f32 sum of two values), whether the program runs as switches
 (``ref.birrd_switch``) or as stage matrices; 1e-5 on dense stage matrices
 and against the RIR oracle (it sums a group in another order).
-``rir_matmul.launch_plan``, the kernel's cut of a GEMM, is pinned: its
-K-splits and their K ranges never depend on M.
+``rir_matmul.launch_plan``, the kernel's design and cut of a GEMM, is
+pinned: the design, its K-splits and their K ranges never depend on M.
+``split_tf32``, the 3xTF32 design's split of the weight, rounds as
+``cvt.rna.tf32.f32`` does, and hi + lo gives x back.
 """
 import re
 
@@ -723,9 +725,13 @@ RESNET_STEPS = [
     (1568, 256, 1024, 128), (392, 1024, 512, 128), (392, 4608, 512, 128)]
 JAX_SWEEP = [(128, 128, 256, 128), (256, 384, 512, 128),
              (256, 256, 1024, 256)]
+# BERT-Large's four encoder GEMMs at 64 sequences of 384 tokens: QKV,
+# attn-out, FFN up, FFN down
+BERT_STEPS = [(24576, 1024, 3072, 128), (24576, 1024, 1024, 128),
+              (24576, 1024, 4096, 128), (24576, 4096, 1024, 128)]
 
 
-@pytest.mark.parametrize("m,k,n,bn", RESNET_STEPS + JAX_SWEEP)
+@pytest.mark.parametrize("m,k,n,bn", RESNET_STEPS + JAX_SWEEP + BERT_STEPS)
 def test_rir_launch_plan_does_not_depend_on_m(m, k, n, bn):
     """The kernel's cut of a GEMM: the same tile, K-splits and K ranges
     for every M, so a row's sums are taken in the same order whatever rows
@@ -745,6 +751,163 @@ def test_rir_launch_plan_does_not_depend_on_m(m, k, n, bn):
             >= rk.SPLIT_MIN_SLICES * rk.TILE_K - rk.TILE_K
     assert plan.kernels == (rk.KERNELS if plan.splits > 1
                             else rk.KERNELS[:1])
+    if plan.design == rk.TF32X3:
+        assert plan == rk.LaunchPlan(rk.TC_TILE, 1, (0, k), rk.TF32X3)
+
+
+@pytest.mark.parametrize("m,k,n,bn", RESNET_STEPS + JAX_SWEEP + BERT_STEPS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rir_design_does_not_depend_on_m(m, k, n, bn, dtype):
+    """The design and the cut come from the dtype, K and N alone: the same
+    for one row as for 24576; bf16 always runs on the SIMT design, and the
+    3xTF32 one only where ``takes_tf32x3`` says (K % 4 == 0, its 128-wide
+    tile dividing N)."""
+    plan = rk.launch_plan(m, k, n, bn, dtype)
+    for rows in (1, 7, 128, 129, 392, m, 24576):
+        assert rk.launch_plan(rows, k, n, bn, dtype) == plan
+    assert plan.design in rk.DESIGNS
+    if plan.design == rk.TF32X3:
+        assert dtype == torch.float32 and k % 4 == 0 and n % rk.TC_TILE == 0
+    assert plan.design == (rk.TF32X3 if rk.takes_tf32x3(k, n, dtype)
+                           else rk.SIMT)
+
+
+def test_rir_design_rule_sorts_the_shapes():
+    """BERT-Large's four GEMMs take 3xTF32; the twelve ResNet-50 batch-8
+    steps (conv1's K = 147 among them), any K % 4 != 0, N off the 128-wide
+    tile, K or N under 1024 and every bf16 GEMM stay on SIMT."""
+    for m, k, n, bn in BERT_STEPS:
+        assert rk.launch_plan(m, k, n, bn).design == rk.TF32X3
+        assert rk.launch_plan(1, k, n, bn).design == rk.TF32X3
+        assert rk.launch_plan(m, k, n, bn, torch.bfloat16).design == rk.SIMT
+    for m, k, n, bn in RESNET_STEPS + [
+            (1000, 1022, 1024, 128), (1000, 1024, 960, 64),
+            (1000, 1026, 3072, 128), (1000, 512, 2048, 128),
+            (1000, 4096, 896, 128)]:
+        assert rk.launch_plan(m, k, n, bn).design == rk.SIMT
+        assert not rk.takes_tf32x3(k, n)
+
+
+def _tf32_neighbours(x: np.ndarray):
+    """The tf32 values just below and above each |x| (10 mantissa bits)."""
+    bits = np.abs(x).astype(np.float32).view(np.uint32)
+    down = (bits & np.uint32(0xFFFFE000)).view(np.float32).astype(np.float64)
+    up = ((bits & np.uint32(0xFFFFE000)) + np.uint32(0x2000)).view(
+        np.float32).astype(np.float64)
+    return down, up
+
+
+def test_split_tf32_rounds_to_nearest_ties_away():
+    """``split_tf32``'s hi is x rounded to tf32 as ``cvt.rna`` rounds: its
+    low 13 mantissa bits are zero, it is the nearer of the two tf32
+    neighbours of x, and a tie goes away from zero; lo is x - hi rounded
+    the same way."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal(20000).astype(np.float32) * \
+        np.exp2(rng.integers(-30, 30, 20000)).astype(np.float32)
+    # exact ties: a set 13th bit and nothing below it, both signs
+    ties = (rng.integers(1 << 23, 1 << 30, 64, dtype=np.int64) << 13 |
+            0x1000).astype(np.uint32).view(np.float32)
+    x = np.concatenate([x, ties, -ties])
+    hi, lo = rk.split_tf32(torch.from_numpy(x))
+    hi, lo = hi.numpy(), lo.numpy()
+    for v, src in ((hi, x), (lo, (x.astype(np.float64) - hi).astype(
+            np.float32))):
+        assert not (v.view(np.uint32) & 0x1FFF).any()
+        down, up = _tf32_neighbours(src)
+        a = np.abs(src).astype(np.float64)
+        want = np.where(a - down < up - a, down, up)   # ties: up, away
+        assert np.array_equal(np.abs(v).astype(np.float64), want)
+        assert np.array_equal(np.signbit(v) | (v == 0),
+                              np.signbit(src) | (v == 0))
+    assert np.array_equal(np.abs(hi[-128:]), _tf32_neighbours(x[-128:])[1])
+
+
+def test_split_tf32_hi_plus_lo_reconstructs_x():
+    """hi + lo is x within 2^-21 of |x| over a seeded normal draw and at
+    +-large values; zeros split into zeros; a subnormal within half a tf32
+    step at the smallest exponent (2^-137), where lo has no bits left."""
+    rng = np.random.default_rng(12)
+    normal = rng.standard_normal(100000).astype(np.float32)
+    large = np.array([1e38, -1e38, 3e38, -3e38, 6.5e37, -2.0 ** 126],
+                     dtype=np.float32)
+    for x in (normal, large):
+        hi, lo = rk.split_tf32(torch.from_numpy(x))
+        err = np.abs(hi.double().numpy() + lo.double().numpy()
+                     - x.astype(np.float64))
+        assert (err <= np.abs(x.astype(np.float64)) * 2.0 ** -21).all()
+    zeros = torch.tensor([0.0, -0.0])
+    hi, lo = rk.split_tf32(zeros)
+    assert torch.equal(hi, zeros) and torch.equal(lo, torch.zeros(2))
+    assert torch.equal(torch.signbit(hi), torch.signbit(zeros))
+    sub = np.array([1e-40, -1e-40, 2.0 ** -149, 3e-39, -1.1e-38],
+                   dtype=np.float32)
+    assert (np.abs(sub) < np.finfo(np.float32).tiny).all()
+    hi, lo = rk.split_tf32(torch.from_numpy(sub))
+    err = np.abs(hi.double().numpy() + lo.double().numpy()
+                 - sub.astype(np.float64))
+    assert (err <= 2.0 ** -137).all()
+    nan = rk.split_tf32(torch.tensor([float("nan")]))
+    assert torch.isnan(nan[0]).all() and torch.isnan(nan[1]).all()
+    with pytest.raises(TypeError):
+        rk.split_tf32(torch.zeros(4, dtype=torch.float64))
+
+
+def test_weight_planes_are_the_split_transposed():
+    """The 3xTF32 design's B: (2N, K), hi^T above lo^T, contiguous; a CPU
+    weight is not prepared (the CPU path runs the plain version)."""
+    b = torch.randn(96, 256, generator=torch.Generator().manual_seed(3))
+    planes = rk.weight_planes(b)
+    hi, lo = rk.split_tf32(b)
+    assert planes.shape == (512, 96) and planes.is_contiguous()
+    assert torch.equal(planes[:256], hi.t()) and \
+        torch.equal(planes[256:], lo.t())
+    assert rk.prepare_weight(b) is None
+
+
+def test_rir_work_names_each_designs_unit():
+    """``work`` counts the 2 M K N operations the GEMM needs on either
+    design, on the CUDA cores for the SIMT one and on the ``"tf32x3"``
+    unit for the 3xTF32 one, whose three TF32 products an fp32 one give it
+    a third of the TF32 tensor cores' 495 TFLOP/s; the bytes alike."""
+    from repro_torch.core import gpu_cost
+    M, K, N = 24576, 4096, 1024
+    nbytes = 4.0 * (M * K + K * N + 2 * M * N + 8)
+    w = rk.work(M, K, N, 4, True, 8)
+    assert w == gpu_cost.Work(2.0 * M * K * N, nbytes, "tf32x3")
+    assert gpu_cost.bound_ms(w)["op_ms"] == \
+        pytest.approx(2.0 * M * K * N / 165e12 * 1e3)
+    assert rk.work(M, K, N, 4, True, 8, design=rk.SIMT) == \
+        gpu_cost.Work(2.0 * M * K * N, nbytes, "fp32")
+    assert rk.work(M, 147, 64, 4).unit == "fp32"
+    assert rk.work(M, K, N, 2).unit == "fp32"
+
+
+def test_rir_matmul_planes_stand_for_the_weight():
+    """The op takes a weight's 3xTF32 planes in its place: the count reads
+    N from them (2N rows), as the fake kernel does; on the CPU, whose plain
+    version reads the weight, an op without it raises."""
+    from repro_torch.core import gpu_cost
+    a = torch.empty(8, 1024, device="meta")
+    planes = torch.empty(2048, 1024, device="meta")
+    perm = torch.empty(8, dtype=torch.int32, device="meta")
+    _, work_of = ops.WORK["repro_torch::rir_matmul"]
+    assert work_of(a, None, perm, None, 128, planes) == \
+        work_of(a, torch.empty(1024, 1024, device="meta"), perm, None, 128)
+    assert work_of(a, None, perm, None, 128, planes) == gpu_cost.Work(
+        2.0 * 8 * 1024 * 1024, 4.0 * (8 * 1024 + 1024 * 1024 + 8 * 1024 + 8),
+        "tf32x3")
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        y = ops.rir_matmul(torch.empty(8, 1024), None,
+                           planes=torch.empty(2048, 1024))
+    assert y.shape == (8, 1024)
+    x = torch.randn(4, 1024)
+    b = torch.randn(1024, 1024)
+    with pytest.raises(ValueError, match="plain version"):
+        ops.rir_matmul(x, None, planes=rk.weight_planes(b))
+    with pytest.raises(ValueError, match="planes"):
+        ops.rir_matmul(x, None)
 
 
 def test_rir_launch_plan_mirrors_the_source():
@@ -755,6 +918,9 @@ def test_rir_launch_plan_mirrors_the_source():
     assert int(consts["kTileM"]) == rk.TILE_M
     assert int(consts["kTileK"]) == rk.TILE_K
     assert int(consts["kMaxSplits"]) == rk.MAX_SPLITS
+    assert int(consts["kBN"]) == int(consts["kBM"]) == rk.TC_TILE
+    assert "__launch_bounds__(tc::kBlockThreads, 1)\n" \
+        f"{rk.KERNELS[0]}_tf32x3(" in src
     assert "const int per = (k_tiles + splits - 1) / splits;" in src
     assert "const int kt0 = blockIdx.z * per;" in src
     assert "__launch_bounds__(2 * TN, 128 / TN)  // kThreads<TN>\n" \

@@ -14,8 +14,13 @@ by device time (the kernels' ``torch.profiler`` events, ``chip_smoke``'s
 
 - ``rir_matmul`` (``--kernels rir_matmul``): the twelve ResNet-50 batch-8
   steps, as ``chip_smoke.py``'s phase 3 does, against the plain version
-  and ``torch.matmul``.  ``--sweep`` also times each step at every tile
-  width and K-split count the kernel takes (a cut forced through
+  and ``torch.matmul``; then BERT-Large's four encoder GEMMs at 64
+  sequences of 384 tokens (the benchmark's batch), each on the design
+  ``launch_plan`` gives it and, where that is 3xTF32, on the SIMT design
+  too, against ``torch.matmul`` and the bounds at 495 TFLOP/s (TF32),
+  165 (3xTF32's three products) and 67 (fp32 on the CUDA cores).
+  ``--sweep`` also times each ResNet-50 step at every tile width and
+  K-split count the SIMT design takes (a cut forced through
   ``rir_matmul._launch``), the measurement ``launch_plan``'s rule is chosen
   from.
 - ``gqa_decode``: the llama3.2-3b decode shape (B 8, Hq 24, Hkv 8, D 128,
@@ -85,10 +90,59 @@ def bench_rir(torch, api, cs, ops, ref, sweep: bool) -> dict:
                             cache=api.PlanCache()).plan
     rec = {"build_log": ptxas_lines(rk.build_log),
            "steps": cs.phase_kernel_resnet(torch, api, ops, ref, rk,
-                                           {"resnet50": (graph, plan)})}
+                                           {"resnet50": (graph, plan)}),
+           "bert": bench_bert(torch, cs, ops, rk)}
     if sweep:
         rec["sweep"] = sweep_plans(torch, api, cs, ops, rk, graph, plan)
     return rec
+
+
+#: BERT-Large's encoder GEMMs (name, K, N, residual) at 64 sequences of
+#: 384 tokens: a residual joins attn-out's and FFN-down's outputs
+BERT = (("qkv", 1024, 3072, False), ("attn_out", 1024, 1024, True),
+        ("ffn_up", 1024, 4096, False), ("ffn_dn", 4096, 1024, True))
+BERT_ROWS = 64 * 384
+
+
+def bench_bert(torch, cs, ops, rk) -> list:
+    """BERT-Large's four GEMMs by device time, on the design the rule
+    gives each (and on the SIMT design beside a 3xTF32 one)."""
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    M = BERT_ROWS
+    for name, K, N, res in BERT:
+        a = torch.randn(M, K, device="cuda", generator=gen)
+        b = torch.randn(K, N, device="cuda", generator=gen) / K ** 0.5
+        r = torch.randn(M, N, device="cuda", generator=gen) if res else None
+        perm = ops.device_perm(range(N // 128), "cuda")
+        # the weight's 3xTF32 planes, made once as the executor makes them
+        # (an older tree has one design, and no planes)
+        kw = {"planes": ops.prepare_weight(b)} \
+            if hasattr(ops, "prepare_weight") else {}
+        cut = rk.launch_plan(M, K, N, 128)
+        design = getattr(cut, "design", "simt")
+        ms, seen = cs.kernel_ms(
+            lambda: ops.rir_matmul(a, b, perm, residual=r, **kw),
+            cut.kernels, iters=20, warmup=3)
+        flops = 2.0 * M * K * N
+        row = {"gemm": name, "M": M, "K": K, "N": N, "residual": res,
+               "design": design, "kernel_ms": ms, "device_kernels": seen,
+               "tflops": flops / ms / 1e9,
+               "library_ms": cs.queued_ms(lambda: torch.matmul(a, b),
+                                          iters=20, warmup=3),
+               "bound_495_ms": flops / 495e12 * 1e3,
+               "bound_165_ms": flops / 165e12 * 1e3,
+               "bound_67_ms": flops / 67e12 * 1e3}
+        if design != "simt":
+            p = rk.launch_plan(M, K, N, 128, torch.bfloat16)
+            simt = rk.LaunchPlan(p.tile_n, p.splits, p.k_bounds)
+            row["simt_ms"], _ = cs.kernel_ms(
+                lambda: rk._launch(a, b, perm, r, 128, simt), simt.kernels,
+                iters=20, warmup=3)
+        print("[bert] " + json.dumps(row), file=sys.stderr, flush=True)
+        rows.append(row)
+        del a, b, r, kw
+    return rows
 
 
 def bench_gqa(torch, api, cs, ops, ref) -> dict:
@@ -181,7 +235,9 @@ def summary(rec: dict) -> dict:
             "plain_ms": tot["plain_ms"], "library_ms": tot["library_ms"],
             "bound_ms": tot["bound_ms"],
             "per_step_ms": [r["kernel_ms"]
-                            for r in rec["rir_matmul"]["steps"]["steps"]]}
+                            for r in rec["rir_matmul"]["steps"]["steps"]],
+            "bert_ms": {r["gemm"]: r["kernel_ms"]
+                        for r in rec["rir_matmul"]["bert"]}}
     for kernel, cases in (("gqa_decode", ("llama", "zamba2")),
                           ("linear_scan", ("rwkv6_train", "zamba2_h80"))):
         if kernel in rec:
