@@ -359,7 +359,12 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool,
         stamps: Optional[List[Tuple[str, float]]] = None) -> Outcome:
     """Run ``cell`` once.  ``hook(engine)``, if given, is called once the
     engine is built (the fault tests plant their faults there); ``stamps``
-    are (phase, end) times of the set-up before the call."""
+    are (phase, end) times of the set-up before the call.  A training
+    configuration (``"kind": "lm_train"``) runs ``train.run`` instead."""
+    if cell.config.get("kind") == "lm_train":
+        from . import train
+        return train.run(cell, seed, seconds, trace, device=device,
+                         t_start=t_start, hook=hook, stamps=stamps)
     from .context import Context
 
     ov = ov or Overrides()

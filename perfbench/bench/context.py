@@ -18,7 +18,9 @@ from .trace import Trace
 class Context:
     cell: Cell
     trace: Optional[Trace]
-    batch: int              # the engine's batch extent
+    batch: int              # the engine's batch extent (a step's sequences)
+    #: a training run's steps a second over its measured window, untraced
+    window_steps_per_s: Optional[float] = None
 
     @property
     def config(self) -> dict:
@@ -30,6 +32,13 @@ class Context:
         if self.trace is None or not self.trace.requests or seconds <= 0:
             return None
         return seconds * 1e3 / self.trace.requests
+
+    def ms_per_step(self, seconds: float) -> Optional[float]:
+        """``seconds`` of the traced steps per step, in ms; None where either
+        is nothing."""
+        if self.trace is None or not self.trace.steps or seconds <= 0:
+            return None
+        return seconds * 1e3 / self.trace.steps
 
     def per_layer(self) -> Dict[str, dict]:
         """Each reader's number; none where the trace saw no device work

@@ -2,8 +2,10 @@
 
 A cell (an entry of ``workloads``) names a configuration and a traffic mix;
 each is one data file: ``configs/<config>.json`` (from the ``configs``
-entry's ``file``) and ``traffic/<traffic>.json``.  A per-layer metric is one
-reader, ``metrics/<metric name>.py``, holding ``read(ctx) -> float | None``.
+entry's ``file``) and ``traffic/<traffic>.json``; a training configuration
+(``"kind": "lm_train"``) also names its model module (``model``: the plain
+reference and the count).  A per-layer metric is one reader,
+``metrics/<metric name>.py``, holding ``read(ctx) -> float | None``.
 Nothing here names a cell, a configuration or a metric: a new one is new
 files and new entries in ``BENCHMARK.json``.
 """
@@ -113,6 +115,11 @@ def problems(spec: dict) -> List[str]:
     for c in spec["configs"]:
         if not (ROOT / c["file"]).is_file():
             out.append(f"config {c['name']}: no file {c['file']}")
+        else:
+            with open(ROOT / c["file"]) as f:
+                model = json.load(f).get("model")
+            if model is not None and not (ROOT / model).is_file():
+                out.append(f"config {c['name']}: no model module {model}")
         for k in c["reduced"]:
             if not NAME_RE.match(k):
                 out.append(f"config {c['name']}: reduced key {k!r}")

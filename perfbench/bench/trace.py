@@ -11,13 +11,18 @@ name wins); the busy time as the union of their intervals, not their sum;
 the idle gaps between them, each named by what the host thread that ended
 it was doing (the innermost host event covering the gap's middle on the
 thread whose launch the next device event answers, else ``after_<the last
-event that thread finished>``).
+event that thread finished>``); and the device-side copies of the
+program's ``record_function`` ranges (``gpu_user_annotation``: from the
+first device event launched under the range to the end of the last),
+clipped to the range, so that a reader can take the device time under a
+range of the program's, such as ``adamw.update``.
 """
 from __future__ import annotations
 
 import bisect
 import collections
 import dataclasses
+import itertools
 import json
 import os
 import pathlib
@@ -29,6 +34,7 @@ from .spec import HERE
 RANGE = "perfbench.window"
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 HOST_CATS = ("cpu_op", "cuda_runtime", "cuda_driver", "user_annotation")
+DEVICE_RANGE_CAT = "gpu_user_annotation"
 
 
 def kernel_classes() -> List[Tuple[str, str]]:
@@ -50,6 +56,7 @@ class DeviceEvent:
     cat: str
     start: float       # us, clipped to the range
     end: float
+    whole: bool = True     # the event lies inside the range, not clipped
 
 
 @dataclasses.dataclass
@@ -60,6 +67,11 @@ class Trace:
     events: List[DeviceEvent]
     gaps: List[Tuple[str, float]]       # (host label, seconds), every gap
     requests: float = 0.0   # answered in the range (at the answers' rate)
+    #: the program's ranges on the device: (name, start us, end us),
+    #: clipped to the range
+    ranges: List[Tuple[str, float, float]] = dataclasses.field(
+        default_factory=list)
+    steps: float = 0.0      # training steps completed in the range
 
     def busy_s(self) -> float:
         total, cur_s, cur_e = 0.0, None, None
@@ -77,6 +89,29 @@ class Trace:
     def class_s(self, cls: str) -> float:
         return sum(e.end - e.start for e in self.events
                    if e.cls == cls) * 1e-6
+
+    def range_s(self, name: str) -> float:
+        """Device time of the events inside the program's device-side ranges
+        called ``name`` (their union: a nested or repeated range counts
+        once)."""
+        spans = sorted((a, b) for n, a, b in self.ranges if n == name)
+        merged: List[List[float]] = []
+        for a, b in spans:
+            if merged and a <= merged[-1][1]:
+                merged[-1][1] = max(merged[-1][1], b)
+            else:
+                merged.append([a, b])
+        events = sorted(self.events, key=lambda e: e.start)
+        starts = [e.start for e in events]
+        reach = list(itertools.accumulate((e.end for e in events), max))
+        total = 0.0
+        for a, b in merged:
+            # the first event that may reach past a, to the last starting
+            # before b
+            j = bisect.bisect_right(reach, a)
+            for e in events[j:bisect.bisect_left(starts, b)]:
+                total += max(0.0, min(e.end, b) - max(e.start, a))
+        return total * 1e-6
 
     def kernel_s(self) -> float:
         return sum(e.end - e.start for e in self.events
@@ -157,8 +192,14 @@ def read_chrome_trace(path: pathlib.Path) -> Trace:
                   and "correlation" in e.get("args", {})}
     index = _host_index(host)
     events = [DeviceEvent(name=e["name"], cls=classify(e["name"], patterns),
-                          cat=e["cat"], start=s, end=d)
+                          cat=e["cat"], start=s, end=d,
+                          whole=e["ts"] >= t0
+                          and e["ts"] + e.get("dur", 0.0) <= t1)
               for s, d, e, _ in device]
+    ranges = [(e["name"], max(e["ts"], t0),
+               min(e["ts"] + e.get("dur", 0.0), t1)) for e in evs
+              if e.get("cat") == DEVICE_RANGE_CAT and e["name"] != RANGE
+              and e["ts"] < t1 and e["ts"] + e.get("dur", 0.0) > t0]
     gaps: List[Tuple[str, float]] = []
     cur = t0
     for s, d, e, args in device + [(t1, t1, None, {})]:
@@ -168,7 +209,8 @@ def read_chrome_trace(path: pathlib.Path) -> Trace:
                 else "end_of_window" if e is None else "unlinked"
             gaps.append((label, (s - cur) * 1e-6))
         cur = max(cur, d)
-    return Trace(window_s=(t1 - t0) * 1e-6, events=events, gaps=gaps)
+    return Trace(window_s=(t1 - t0) * 1e-6, events=events, gaps=gaps,
+                 ranges=ranges)
 
 
 def export_and_read(prof) -> Trace:

@@ -49,8 +49,12 @@ def test_guard_compares_whole_top_level_names():
 def test_a_run_imports_nothing_of_jax():
     code = ("import sys; sys.path[:0] = ['perfbench', 'src']; "
             "import run; run._environment(); "
-            "from bench import cell, context, reference, trace; "
-            "import repro_torch.api, repro_torch.serve.engine; "
+            "from bench import cell, context, faults, reference, spec, "
+            "trace, train; import repro_torch.api, repro_torch.serve.engine; "
+            "import control_train; "
+            "[train.model_module(spec.find_cell(w['name']).config) "
+            "for w in spec.load_spec()['workloads'] "
+            "if spec.find_cell(w['name']).config.get('kind')]; "
             "print(cell.forbidden_modules())")
     out = subprocess.run([sys.executable, "-c", code], cwd=spec.ROOT,
                          capture_output=True, text=True, check=True)
