@@ -273,6 +273,18 @@ Phases, each of which raises on failure (nothing is caught and skipped):
     width, 1 layer, 8 experts; and at SMOKE widths with capacity factor
     0.5, where dispatch drops): the loss and every gradient within 2e-4.
 
+29. granite-4.0-h-small's scan and step, as ``perfbench``'s cell
+    ``granite_4p0_h_small.train_4k_ep8`` gives them: ``linear_scan`` at
+    dk 128 / dv 64 (B 1, H 128, T 4096, and a ragged T of 1037) in f32
+    and bf16 against the plain chunked version at SCAN_TOL; the cell's
+    shape in bf16 timed beside the plain version, with the kernel's bound
+    (its broadcast operands) and the bound by the cell's own count
+    (``scan_call_work`` of the benchmark's model module: x, y, B, C and
+    dt, unbroadcast); then one training step through ``api.build_model``
+    and ``make_train_step`` at the cell's overrides (one period of 10
+    layers, 9 of 72 experts held), 1 x 4096 tokens, a finite loss and 18
+    ``linear_scan`` launches (9 Mamba2 layers, forward and recompute).
+
 The last two lines are the kernel record and ``{"ok": true, "device": ...}``.
 Without CUDA, or without the repository's sources beside it, the script
 exits non-zero and prints no result.  TF32 is switched off for PyTorch's
@@ -285,6 +297,7 @@ import contextlib
 import dataclasses
 import itertools
 import json
+import math
 import pathlib
 import shutil
 import subprocess
@@ -532,6 +545,13 @@ FAMILY_SERVE = {"batch": 8, "prompt": 128, "gen": 16}
 FAMILY_SERVE_PROMPT = {"whisper_small": 64}
 # a gradient's bits hashed in chunks of this many 16-bit words
 FP_CHUNK = 1 << 22
+# phase 29: granite-4.0-h-small as perfbench's training cell runs it
+GRANITE_CELL_CONFIG = (ROOT / "perfbench" / "configs"
+                       / "granite_4p0_h_small.json")
+GRANITE_SCAN_SHAPE = (1, 128, 4096, 128, 64)   # B, H, T, dk (d_state), dv
+GRANITE_RAGGED_T = 1037
+GRANITE_SEED = 29
+GRANITE_SCAN_LAUNCHES = 18     # 9 Mamba2 layers, each forward and recompute
 
 
 def log(msg: str) -> None:
@@ -4615,6 +4635,99 @@ def phase_family(torch, api, ops, ref, gk) -> dict:
     return rec
 
 
+def granite_cell():
+    """The cell's configuration (``perfbench/configs``) and its model
+    module, loaded by path (it imports neither package)."""
+    import importlib.util
+    config = json.loads(GRANITE_CELL_CONFIG.read_text())
+    spec = importlib.util.spec_from_file_location(
+        "granite_cell_model", ROOT / config["model"])
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return config, mod
+
+
+def phase_granite(torch, api, ops, ref, lk) -> dict:
+    """29. ``linear_scan`` at granite's dk 128 / dv 64 against the plain
+    chunked version, timed at the cell's shape, and one training step of
+    the cell's model through the normal path, its scan launches counted."""
+    from repro_torch.core import gpu_cost
+    torch.cuda.empty_cache()
+    config, mod = granite_cell()
+    B, H, T, dk, dv = GRANITE_SCAN_SHAPE
+    dts = {"f32": torch.float32, "bf16": torch.bfloat16}
+    worst = {}
+    for dt, tdt in dts.items():
+        for t in (T, GRANITE_RAGGED_T):
+            q, k, v, w = scan_inputs(torch, B, H, t, dk, dv, tdt,
+                                     GRANITE_SEED + t)
+            before = lk.launch_count()
+            y = ops.linear_scan(q, k, v, w)
+            torch.cuda.synchronize()
+            name = f"granite scan {B}x{H}x{t} dk={dk} dv={dv} {dt}"
+            if lk.launch_count() != before + 1 or y.dtype != tdt or \
+                    y.shape != v.shape:
+                raise AssertionError(f"{name}: {lk.launch_count() - before} "
+                                     f"launches, {y.dtype} {y.shape}")
+            worst[f"{dt}_T{t}"] = check_close(
+                name, y, ref.linear_scan_chunked(q, k, v, w), SCAN_TOL[dt],
+                SCAN_TOL[dt])
+            del q, k, v, w, y
+    log(f"[granite] scan at dk {dk} / dv {dv} within SCAN_TOL; worst |err| "
+        + json.dumps(worst))
+
+    # the cell's shape, bf16 as the model hands it
+    q, k, v, w = scan_inputs(torch, B, H, T, dk, dv, torch.bfloat16,
+                             GRANITE_SEED)
+    want = ref.linear_scan_chunked(q, k, v, w)
+    err = check_close("granite scan, the cell's shape",
+                      ops.linear_scan(q, k, v, w), want, SCAN_TOL["bf16"],
+                      SCAN_TOL["bf16"])
+    # the cell's count at its reader's rates (``linear_scan_roofline``):
+    # the FLOPs at the bf16 tensor cores' peak, the bytes at HBM's
+    flops, nbytes = mod.scan_call_work(config, B, T)
+    cell = gpu_cost.bound_ms(gpu_cost.Work(flops, nbytes, "bf16"))
+    shape = {"max_abs_err": err, "ref_max_abs": float(want.abs().max()),
+             **scan_times(torch, ops, ref, [lk.KERNEL], q, k, v, w),
+             "cell_bound_ms": cell["bound_ms"],
+             "cell_bound_by": cell["bound_by"], "cell_gbytes": nbytes / 1e9}
+    shape["cell_roofline_pct"] = 100 * cell["bound_ms"] / shape["ms"]
+    log("[granite] the cell's scan shape " + json.dumps(shape))
+    del q, k, v, w, want
+    torch.cuda.empty_cache()
+
+    # one step of the cell's model, 1 x 4096, on the normal path
+    cfg = dataclasses.replace(api.get_config(config["arch"]),
+                              **config["overrides"])
+    torch.cuda.reset_peak_memory_stats()
+    model = api.build_model(cfg, device=DEV)
+    model.init(torch.Generator(device=DEV).manual_seed(GRANITE_SEED))
+    opt = api.adamw_init(model.params())
+    step = api.make_train_step(model, lr=2e-3)
+    toks = torch.randint(0, cfg.vocab, (1, T + 1), device=DEV,
+                         generator=torch.Generator(device=DEV)
+                         .manual_seed(GRANITE_SEED))
+    lk.reset_launch_count()
+    t0 = time.perf_counter()
+    opt, m = step(opt, {"tokens": toks})
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    launches = lk.launch_count()
+    if launches != GRANITE_SCAN_LAUNCHES or not math.isfinite(loss):
+        raise AssertionError(f"granite step: {launches} linear_scan launches"
+                             f" (want {GRANITE_SCAN_LAUNCHES}), loss {loss}")
+    rec = {"scan": worst, "shape": shape, "step": {
+        "n_layers": cfg.n_layers, "experts_held": cfg.held,
+        "n_experts": cfg.n_experts, "top_k": cfg.top_k, "loss": loss,
+        "scan_launches": launches, "first_step_s": step_s,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "n_params": sum(p.numel() for p in model.params().values())}}
+    log("[granite] one training step " + json.dumps(rec["step"]))
+    del model, opt, step, toks
+    torch.cuda.empty_cache()
+    return rec
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="chip_smoke.py")
     ap.add_argument("--out", default=None,
@@ -4696,6 +4809,8 @@ def main(argv=None) -> int:
     record["family"] = run("family", phase_family, torch, api, ops, ref, gk)
     record["kernel_bert"] = run("kernel_bert", phase_kernel_bert, torch, ops,
                                 ref, rk)
+    record["granite"] = run("granite", phase_granite, torch, api, ops, ref,
+                            lk)
     record["seconds"] = time.perf_counter() - t_start
     record["phase_seconds"] = phase_s
     tot = record["resnet50_steps"]["total"]
@@ -4706,6 +4821,7 @@ def main(argv=None) -> int:
     hyb = record["hybrid_mesh"]
     fam = record["family"]
     bert = record["kernel_bert"]["total"]
+    gr = record["granite"]
     kernels = {"kernels": [{
         "name": "rir_matmul", "design": "simt", "route": "cuda",
         "source": SOURCE, "replaces": REPLACES,
@@ -4747,9 +4863,15 @@ def main(argv=None) -> int:
             record["mesh"]["rwkv6"]["coswitch"]["scan_launches"],
             "zamba2-2.7b train coswitch (phase 26)":
             hyb["train"]["coswitch"]["scan_launches"]},
+        "launches_by_path": {
+            "granite-4.0-h-small train step (phase 29)":
+            gr["step"]["scan_launches"]},
         "max_abs_err": sc["max_abs_err"], "ms": sc["ms"],
         "plain_ms": sc["plain_ms"], "bound_ms": sc["bound_ms"],
-        "bound_by": sc["bound_by"], "library_ms": None}, {
+        "bound_by": sc["bound_by"], "library_ms": None,
+        "granite_shape": {k: gr["shape"][k] for k in (
+            "B", "H", "T", "dk", "dv", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "cell_bound_ms", "cell_roofline_pct")}}, {
         "name": "birrd_apply", "route": "cuda", "source": BIRRD_SOURCE,
         "replaces": BIRRD_REPLACES,
         "launches": record["coswitch"]["birrd_launches"],

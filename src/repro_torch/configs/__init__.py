@@ -23,6 +23,9 @@ _ALIASES = {
     "dbrx-132b": "dbrx_132b",
     "chameleon-34b": "chameleon_34b",
     "rwkv6-1.6b": "rwkv6_1p6b",
+    # reachable by name, but kept out of ARCH_IDS: the JAX package, which
+    # the parity tests hold every arch of ARCH_IDS against, has no granite
+    "granite-4.0-h-small": "granite_4p0_h_small",
 }
 
 

@@ -32,6 +32,24 @@ class ArchConfig:
     conv_width: int = 4
     # hybrid (zamba2): shared attention block every N backbone blocks
     shared_attn_every: int = 0
+    # hybrid_moe (granite-4.0-h): attention at the layers i with i % period
+    # == offset, Mamba2 at the rest, every layer followed by an MoE block
+    attn_period: int = 0
+    attn_offset: int = 0
+    # MoE: the shared expert's width (0: d_ff); the experts this device
+    # holds under expert parallelism, experts_held of them from
+    # expert_first (0: all n_experts; the router routes over all of them)
+    d_ff_shared: int = 0
+    experts_held: int = 0
+    expert_first: int = 0
+    # granite's multipliers: the embedding's rows, each residual branch,
+    # the attention scores in training (None: 1/sqrt(head_dim)) and the
+    # logits divided by logits_scaling; NoPE: attention without RoPE
+    embedding_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    attention_multiplier: Optional[float] = None
+    logits_scaling: float = 1.0
+    nope: bool = False
     # enc-dec (whisper)
     enc_layers: int = 0
     enc_frames: int = 1500      # stub audio frontend: precomputed frames
@@ -47,8 +65,39 @@ class ArchConfig:
         return self.d_head or self.d_model // self.n_heads
 
     @property
+    def held(self) -> int:
+        """Experts this device holds (``experts_held``, else all)."""
+        return self.experts_held or self.n_experts
+
+    def is_attention(self, i: int) -> bool:
+        """Whether layer ``i`` of a hybrid_moe stack is attention."""
+        return bool(self.attn_period) and \
+            i % self.attn_period == self.attn_offset
+
+    def _hybrid_moe_params(self, active: bool) -> float:
+        """hybrid_moe's count, norms included: the Mamba2 or attention
+        mixer by layer, every layer's MoE block (the router over all
+        experts; the held experts, or the top_k a token runs where
+        ``active``; the shared expert), the tied embedding."""
+        D, V = self.d_model, self.vocab
+        dh, H, Hkv = self.head_dim, self.n_heads, self.n_kv_heads
+        di, st, hd = self.d_inner, self.ssm_state, self.ssm_heads
+        attn = D + D * dh * (H + 2 * Hkv) + H * dh * D
+        mamba = D + D * (2 * di + 2 * st + hd) \
+            + (self.conv_width + 1) * (di + 2 * st) + 3 * hd + di + di * D
+        experts = self.top_k if active else self.held
+        moe = D + D * self.n_experts + experts * 3 * D * self.d_ff \
+            + 3 * D * (self.d_ff_shared or self.d_ff)
+        mixers = sum(attn if self.is_attention(i) else mamba
+                     for i in range(self.n_layers))
+        return mixers + self.n_layers * moe + V * D + D
+
+    @property
     def n_params(self) -> float:
-        """Total parameter count (approximate analytical)."""
+        """Total parameter count (approximate analytical; a hybrid_moe
+        stack's exact, of the experts held)."""
+        if self.family == "hybrid_moe":
+            return self._hybrid_moe_params(active=False)
         D, F, V, L = self.d_model, self.d_ff, self.vocab, self.n_layers
         dh, H, Hkv = self.head_dim, self.n_heads, self.n_kv_heads
         attn = D * dh * (H + 2 * Hkv) + H * dh * D
@@ -84,6 +133,8 @@ class ArchConfig:
     @property
     def n_params_active(self) -> float:
         """Active params per token (= total for dense; top-k experts for MoE)."""
+        if self.family == "hybrid_moe":
+            return self._hybrid_moe_params(active=True)
         if self.family != "moe":
             return self.n_params
         D, F, L = self.d_model, self.d_ff, self.n_layers

@@ -54,6 +54,10 @@
 //   each), warps 3-7 the 4 diagonal blocks (10 tiles each, 4 lanes a tile
 //   over dk, summed by shuffles); every thread owns one 4 x 4 tile of y and
 //   one of the new state.
+// - Mamba-2 at d_state 128 hands it dk = 128, dv = 64: the state is 32 KB
+//   and the buffers 183 KB at bf16 (223 KB at f32), so one CTA takes an SM;
+//   each thread then owns two 4 x 4 tiles of the state, 64 rows apart.  The
+//   work split and the chunk's phases are those of the narrower heads.
 // There is no backward kernel (the TPU package has none either): autograd
 // recomputes through the plain chunked version.
 //
@@ -181,7 +185,9 @@ linear_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
   constexpr int NSEG = kThreads / DK;      // the scan's segments a column
   constexpr int SEG = L / NSEG;
   constexpr int YC = DV / 4;               // column tiles of y and h
-  static_assert(DK % 16 == 0 && DV % 16 == 0 && DK <= 64 && DV <= 64 &&
+  constexpr int HR = kThreads / YC;        // tile rows of h a pass
+  constexpr int HN = (DK / 4 + HR - 1) / HR;   // passes: 2 at dk 128
+  static_assert(DK % 16 == 0 && DV % 16 == 0 && DK <= 128 && DV <= 64 &&
                     L % NSEG == 0, "tile mapping");
 
   extern __shared__ __align__(16) unsigned char smem[];
@@ -215,11 +221,11 @@ linear_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
   T* ob = out + bh * T_len * DV;
 
   // every thread owns the 4 x 4 tile (rows 4 ty.., cols 4 tc..) of y and,
-  // where ty < DK / 4, the same tile of the state
+  // of the state, the tiles of rows 4 (ty + j HR).. for j < HN that lie
+  // inside dk (the same tile alone where dk <= 64)
   const int ty = tid / YC;
   const int tc = tid % YC;
   const bool y_owner = ty < L / 4;
-  const bool h_owner = ty < DK / 4;
 
   for (int i = tid; i < DK * DV; i += kThreads) h_s[i] = 0.0f;
 
@@ -490,7 +496,10 @@ linear_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
                                           4 * tc, y[r]);
       }
     }
-    if (h_owner) {
+#pragma unroll
+    for (int j = 0; j < HN; ++j) {
+      const int hy = ty + j * HR;
+      if (hy >= DK / 4) break;
       float acc[4][4];
 #pragma unroll
       for (int r = 0; r < 4; ++r)
@@ -505,7 +514,7 @@ linear_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int cc = 0; cc < 4; ++cc) blk[r][cc] = 0.0f;
 #pragma unroll 4
         for (int s = i * kSub; s < (i + 1) * kSub; ++s) {
-          const float4 kv = ld4(kf_s + s * FS + 4 * ty);
+          const float4 kv = ld4(kf_s + s * FS + 4 * hy);
           const float4 vv = ld4(vf + s * VFS + 4 * tc);
 #pragma unroll
           for (int r = 0; r < 4; ++r) {
@@ -516,17 +525,17 @@ linear_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
             blk[r][3] = fmaf(a, vv.w, blk[r][3]);
           }
         }
-        const float4 mt = ld4(mt_s + i * DK + 4 * ty);
+        const float4 mt = ld4(mt_s + i * DK + 4 * hy);
 #pragma unroll
         for (int r = 0; r < 4; ++r)
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc)
             acc[r][cc] = fmaf(comp(mt, r), blk[r][cc], acc[r][cc]);
       }
-      const float4 et = ld4(et_s + 4 * ty);
+      const float4 et = ld4(et_s + 4 * hy);
 #pragma unroll
       for (int r = 0; r < 4; ++r) {
-        float* hr = h_s + (4 * ty + r) * DV + 4 * tc;
+        float* hr = h_s + (4 * hy + r) * DV + 4 * tc;
         const float4 hv = ld4(hr);
         st4(hr, make_float4(fmaf(comp(et, r), hv.x, acc[r][0]),
                             fmaf(comp(et, r), hv.y, acc[r][1]),
@@ -538,9 +547,12 @@ linear_scan_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// two CTAs share an SM (228 KB, 1 KB reserved a CTA) at the paths' shape
+// two CTAs share an SM (228 KB, 1 KB reserved a CTA) at the paths' shape;
+// one at Mamba-2's d_state 128, f32 included
 static_assert(2 * (Layout<__nv_bfloat16, 64, 64>::bytes + 1024) <= 233472,
               "two bf16 64/64 CTAs an SM");
+static_assert(Layout<float, 128, 64>::bytes + 1024 <= 233472,
+              "one f32 128/64 CTA an SM");
 
 template <typename T, int DK, int DV>
 int launch_dims(const void* q, const void* k, const void* v, const void* w,
@@ -576,11 +588,16 @@ int launch_dims(const void* q, const void* k, const void* v, const void* w,
 template <typename T, int DK>
 int launch_dv(const void* q, const void* k, const void* v, const void* w,
               void* out, int BH, int T_len, int dv, cudaStream_t st) {
-  switch (dv) {
-    case 16: return launch_dims<T, DK, 16>(q, k, v, w, out, BH, T_len, st);
-    case 32: return launch_dims<T, DK, 32>(q, k, v, w, out, BH, T_len, st);
-    case 64: return launch_dims<T, DK, 64>(q, k, v, w, out, BH, T_len, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (DK == 128) {               // Mamba-2's d_state: dv 64 alone
+    if (dv != 64) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_dims<T, 128, 64>(q, k, v, w, out, BH, T_len, st);
+  } else {
+    switch (dv) {
+      case 16: return launch_dims<T, DK, 16>(q, k, v, w, out, BH, T_len, st);
+      case 32: return launch_dims<T, DK, 32>(q, k, v, w, out, BH, T_len, st);
+      case 64: return launch_dims<T, DK, 64>(q, k, v, w, out, BH, T_len, st);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
 }
 
@@ -593,6 +610,7 @@ int launch(const void* q, const void* k, const void* v, const void* w,
     case 16: return launch_dv<T, 16>(q, k, v, w, out, BH, T_len, dv, st);
     case 32: return launch_dv<T, 32>(q, k, v, w, out, BH, T_len, dv, st);
     case 64: return launch_dv<T, 64>(q, k, v, w, out, BH, T_len, dv, st);
+    case 128: return launch_dv<T, 128>(q, k, v, w, out, BH, T_len, dv, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -600,7 +618,8 @@ int launch(const void* q, const void* k, const void* v, const void* w,
 }  // namespace
 
 // q, k (BH, T, dk) and v, out (BH, T, dv) of one type, w (BH, T, dk) f32:
-// row-major, contiguous and 16-byte aligned; dk and dv each 16, 32 or 64.
+// row-major, contiguous and 16-byte aligned; dk and dv each 16, 32 or 64,
+// or dk 128 with dv 64.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int linear_scan_f32(const void* q, const void* k, const void* v,
                                const void* w, void* out, int BH, int T,

@@ -9,7 +9,8 @@ chunk, intra-chunk scores through 16-row blocks, every exponent <= 0).
 Where the TPU grid walks the chunks of one (b, h) in order and carries the
 state in VMEM scratch, one CTA takes one (b, h) and walks its chunks in a
 loop with the state in shared memory; at bf16 64/64 its buffers take 99 KB,
-so two CTAs share an SM.  The last chunk of a T that 64 does not divide is
+so two CTAs share an SM, and at Mamba-2's d_state 128 (dk 128, dv 64) 183
+KB, so one CTA takes an SM.  The last chunk of a T that 64 does not divide is
 masked (its padding counts as k = v = 0, log decay 0), so any T runs the
 kernel.  There is no backward kernel: ``ops.linear_scan`` recomputes
 through the plain chunked version, as the JAX package does.
@@ -35,8 +36,10 @@ NAME = "linear_scan"
 SOURCE = _build.CSRC / f"{NAME}.cu"
 #: the kernel's name in a profile
 KERNEL = "linear_scan_kernel"
-#: head dims the kernel is instantiated for (dk and dv each)
-HEAD_DIMS = (16, 32, 64)
+#: dk the kernel is instantiated for: each of ``DV_DIMS``, and 128 (Mamba-2
+#: at d_state 128) with dv 64 alone
+HEAD_DIMS = (16, 32, 64, 128)
+DV_DIMS = (16, 32, 64)
 DTYPES = (torch.float32, torch.bfloat16)
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 
@@ -91,9 +94,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dv = v.shape[-1]
     if min(B, H, T) < 1 or max(B * H, T) >= 2 ** 31:   # int32 arguments
         raise ValueError(f"extents out of range: B={B} H={H} T={T}")
-    if dk not in HEAD_DIMS or dv not in HEAD_DIMS:
+    if dk not in HEAD_DIMS or dv not in DV_DIMS or (dk == 128 and dv != 64):
         raise ValueError(f"head dims dk={dk}, dv={dv}: the kernel takes "
-                         f"{HEAD_DIMS} each")
+                         f"dk and dv each in {DV_DIMS}, or dk 128 with dv "
+                         f"64")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"dtypes {q.dtype}/{k.dtype}/{v.dtype}: need q, k, v"
                         f" all float32 or all bfloat16")

@@ -24,6 +24,13 @@ gathered whole, K/V all-gathered along T), and decode keeps every head
 in a cache split by sequence, each rank attending over its block and the
 ranks merging by log-sum-exp (``attn_decode``, ``_decode_attend``); a T
 the model axis does not divide runs attention whole on every rank.
+
+``moe_apply_held`` is the expert block of one device of an
+expert-parallel deployment, dropless: it routes over every expert, runs
+the experts it holds (``cfg.experts_held`` from ``cfg.expert_first``) on
+every (token, k) routed to them, sorted by expert, as grouped products
+with the group bounds on the device (``grouped_mm``), leaves out what the
+absent experts would add, and adds the shared expert.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
 
@@ -162,7 +170,8 @@ def attn_train(cfg: ArchConfig, p, x: torch.Tensor,
         pos = torch.broadcast_to(pos, (B, T))
         q = apply_rope(q, pos, cfg.rope_theta)
         k = apply_rope(k, pos, cfg.rope_theta)
-    o = chunked_attention(q, k, v, causal=causal)
+    o = chunked_attention(q, k, v, causal=causal,
+                          scale=cfg.attention_multiplier)
     return tp.exit(dense(o.reshape(B, T, -1), p["wo"]))
 
 
@@ -385,18 +394,21 @@ def mlp_apply(cfg: ArchConfig, p, x: torch.Tensor,
 
 # ------------------------------------------------------------------------- MoE
 def moe_specs(cfg: ArchConfig) -> SpecTree:
-    """The router (f32 in any model), the experts' stacked MLP weights and,
-    where the config has one, the shared expert (an MLP without a norm)."""
-    D, F, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    """The router over all ``n_experts`` (f32 in any model), the stacked
+    MLP weights of the experts held (``cfg.held``) and, where the config
+    has one, the shared expert (an MLP without a norm, ``d_ff_shared``
+    wide where set)."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.held
     dt = dtype_of(cfg)
     s = {"norm": norm_spec(cfg.norm, D, dt),
-         "router": ((D, E), torch.float32),
+         "router": ((D, cfg.n_experts), torch.float32),
          "wu": ((E, D, F), dt),
          "wd": ((E, F, D), dt)}
     if cfg.act == "swiglu":
         s["wg"] = ((E, D, F), dt)
     if cfg.shared_expert:
-        s["shared"] = {k: v for k, v in mlp_specs(cfg).items() if k != "norm"}
+        s["shared"] = {k: v for k, v in mlp_specs(
+            cfg, cfg.d_ff_shared or None).items() if k != "norm"}
     return s
 
 
@@ -490,6 +502,131 @@ def moe_apply(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
     wg = p["wg"] if cfg.act == "swiglu" else None
     out_e = moe_experts(cfg, dispatched, p["wu"], wg, p["wd"])
     combined = moe_combine(out_e.reshape(-1, D), slot, gates, flat)
+    if cfg.shared_expert:
+        sp = p["shared"]
+        combined = combined + moe_shared(
+            cfg, flat, sp["wu"], sp["wg"] if cfg.act == "swiglu" else None,
+            sp["wd"])
+    return combined.reshape(B, T, D)
+
+
+# ----------------------------------------------------------- held experts
+#: the ``torch.profiler`` range around the held-expert block's routing,
+#: sort, grouped products and combine (forward and recompute), and around
+#: each grouped product's backward
+MOE_RANGE = "moe.experts"
+
+
+def _gmm(a: torch.Tensor, b: torch.Tensor, ends: torch.Tensor
+         ) -> torch.Tensor:
+    """Rows ``[ends[g-1], ends[g])`` of ``a`` (M, K) times ``b[g]`` (G, K,
+    N): (M, N); rows past ``ends[-1]`` are left unspecified.  On the card
+    in bf16, one ``torch._grouped_mm`` with the bounds on the device (no
+    host sync); elsewhere a product a group, the bounds read on the host."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a, b, offs=ends)
+    lo, out = 0, []
+    for g, hi in enumerate(ends.tolist()):
+        out.append(a[lo:hi] @ b[g])
+        lo = hi
+    out.append(a.new_zeros(a.shape[0] - lo, b.shape[-1]))
+    return torch.cat(out)
+
+
+def _gmm_weight_grad(a: torch.Tensor, g: torch.Tensor, ends: torch.Tensor
+                     ) -> torch.Tensor:
+    """Each group's ``a[rows].T @ g[rows]``: (G, K, N) of ``a`` (M, K), ``g``
+    (M, N) over the groups ``ends`` bounds (rows past ``ends[-1]`` not
+    read)."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch._grouped_mm(a.t(), g, offs=ends)
+    lo, out = 0, []
+    for hi in ends.tolist():
+        out.append(a[lo:hi].T @ g[lo:hi])
+        lo = hi
+    return torch.stack(out)
+
+
+class _GroupedMM(torch.autograd.Function):
+    """``grouped_mm`` with its backward: the input's gradient by the same
+    grouped product against each weight transposed, zero past the last
+    group (so nothing unspecified reaches the tokens), the weights' by a
+    product a group over its rows (which reads no row past the last
+    group); the backward runs under ``MOE_RANGE``."""
+
+    @staticmethod
+    def forward(ctx, a, b, ends, rows):
+        ctx.save_for_backward(a, b, ends, rows)
+        return torch.where(rows, _gmm(a, b, ends), 0)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b, ends, rows = ctx.saved_tensors
+        with torch.profiler.record_function(MOE_RANGE):
+            ga = torch.where(rows, _gmm(g, b.transpose(-1, -2).contiguous(),
+                                        ends), 0)
+            # a group with no rows has a zero gradient, whatever the
+            # library leaves in its block
+            n = torch.diff(ends, prepend=ends.new_zeros(1))
+            gb = torch.where(n[:, None, None] > 0,
+                             _gmm_weight_grad(a, g, ends), 0)
+        return ga, gb, None, None
+
+
+def grouped_mm(a: torch.Tensor, b: torch.Tensor, ends: torch.Tensor,
+               rows: torch.Tensor) -> torch.Tensor:
+    """Rows of ``a`` (M, K), sorted by group, each group's times its weight
+    of ``b`` (G, K, N): group g takes rows ``[ends[g-1], ends[g])`` (``ends``
+    (G,) int32 on the device).  ``rows`` (M, 1) bool: the rows before
+    ``ends[-1]``; the rest give zeros, and so does their gradient."""
+    return _GroupedMM.apply(a, b, ends, rows)
+
+
+def moe_apply_held(cfg: ArchConfig, p, x: torch.Tensor) -> torch.Tensor:
+    """x: (B, T, D) -> this device's part of the dropless MoE block.
+
+    The router's top k over all ``n_experts`` and their gates (a softmax
+    over the k logits); every (token, k) routed to an expert held here
+    (``cfg.held`` of them from ``cfg.expert_first``) is computed, with no
+    capacity: the N K assignments are sorted by expert, the held ones
+    first, and each held expert runs a SwiGLU MLP over its rows as grouped
+    products (``grouped_mm``) bounded on the device, so the host never
+    waits on the routing.  The outputs, weighted by their gates, go back
+    to their tokens and sum over k.  What the absent experts would add is
+    left out: the other devices of the deployment add it.  The shared
+    expert, which every device computes, is added after.  All but the
+    shared expert runs under the profiler range ``MOE_RANGE``, and so do
+    the grouped products' backward (the gather's, the activation's and
+    the combine's backward run outside it); with obs
+    tracing on (it reads a device value) the gauge
+    ``moe.load_max_over_mean`` takes the busiest held expert's rows over
+    the held experts' mean."""
+    B, T, D = x.shape
+    E, K = cfg.held, cfg.top_k
+    with torch.profiler.record_function(MOE_RANGE):
+        flat, _, (top, idx) = moe_route(cfg, p, x)
+        N = flat.shape[0]
+        gates = torch.softmax(top, dim=-1).reshape(-1)             # (N K,)
+        local = idx.reshape(-1) - cfg.expert_first
+        group = torch.where((local >= 0) & (local < E), local, E)  # E: absent
+        order = torch.argsort(group, stable=True)
+        counts = torch.zeros(E + 1, dtype=group.dtype,
+                             device=x.device).scatter_add_(
+            0, group, torch.ones_like(group))
+        ends = torch.cumsum(counts[:E], 0).to(torch.int32)
+        rows = (torch.arange(N * K, device=x.device) < ends[-1])[:, None]
+        xs = flat[order // K]
+        up = grouped_mm(xs, p["wu"], ends, rows)
+        gate = grouped_mm(xs, p["wg"], ends, rows) if cfg.act == "swiglu" \
+            else None
+        out = grouped_mm(activation(cfg.act, up, gate), p["wd"], ends, rows)
+        out = out * gates[order, None].to(out.dtype)
+        combined = torch.sum(out.new_zeros(N * K, D).index_copy(
+            0, order, out).reshape(N, K, D), dim=1)
+        if obs.enabled():
+            held = counts[:E].float()
+            obs.set_gauge("moe.load_max_over_mean",
+                          float(held.max() / held.mean().clamp(min=1e-30)))
     if cfg.shared_expert:
         sp = p["shared"]
         combined = combined + moe_shared(

@@ -106,7 +106,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ----------------------------------------------------- chunked causal attention
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       chunk: int = 1024, causal: bool = True,
-                      q_offset: Optional[int] = None) -> torch.Tensor:
+                      q_offset: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
     """Memory-efficient (flash-style) attention in plain torch.
 
     q: (B, Tq, H, dh); k/v: (B, Tk, Hkv, dh) with H = G * Hkv.  The
@@ -114,14 +115,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     softmax: peak memory O(chunk^2) instead of O(Tq * Tk).  The queries sit
     at positions ``q_offset`` .. ``q_offset + Tq - 1`` of the keys' (the
     last Tq by default; a rank's block of a sequence split passes its
-    first position).  Under ``causal`` a query block skips the KV chunks
+    first position).  The scores are scaled by ``scale`` (1/sqrt(dh) by
+    default).  Under ``causal`` a query block skips the KV chunks
     that lie wholly past its last query: such a chunk would add ``exp(NEG_INF
     - m) = 0`` to every sum, so the skip changes no bit.
     """
     B, Tq, H, dh = q.shape
     _, Tk, Hkv, _ = k.shape
     G = H // Hkv
-    scale = 1.0 / (dh ** 0.5)
+    scale = 1.0 / (dh ** 0.5) if scale is None else scale
     q0 = Tk - Tq if q_offset is None else q_offset
     chunk = min(chunk, Tk)
     while Tk % chunk:   # largest chunk <= requested that tiles Tk

@@ -1,4 +1,6 @@
-"""Zamba2-style hybrid: a Mamba2 backbone plus one SHARED attention block
+"""The hybrids: zamba2 (``HybridModel``) and granite-4.0-h (``HybridMoEModel``).
+
+Zamba2-style hybrid: a Mamba2 backbone plus one SHARED attention block
 invoked every ``shared_attn_every`` backbone layers (its parameters reused,
 Zamba2's global shared transformer block).  The shared block consumes
 concat(x, x_embed0) through a down-projection, per the Zamba design.
@@ -20,6 +22,18 @@ all-gathered and handed to the stream's layout (``_concat_proj``);
 attention and the MLP with the dense rules (heads, or the sequence where
 the heads do not divide the group), each invocation's
 ``attn_k``/``attn_v`` as ``cache_shardings`` places them.
+
+Granite-4.0-H (``family="hybrid_moe"``): each layer is a mixer then an
+MoE block, the mixer GQA attention with NoPE at the layers ``i`` with
+``i % attn_period == attn_offset`` and Mamba2 at the rest, each with its
+own parameters (no block is shared).  The MoE block is the dropless
+held-expert block (``blocks.moe_apply_held``): the router routes over all
+``n_experts``, this device runs the ``experts_held`` it holds and the
+shared expert.  The embedding's rows are multiplied by
+``embedding_multiplier``, each residual branch by ``residual_multiplier``
+and the scores by ``attention_multiplier``; the logits of the tied head
+are divided by ``logits_scaling``.  It trains on one device: no mesh,
+prefill or decode.
 """
 from __future__ import annotations
 
@@ -28,8 +42,10 @@ from typing import Dict, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from .blocks import attn_decode, attn_train, dtype_of, mlp_apply
-from .common import NO_TP, ParamModule, SpecTree, TensorParallel, dense
+from .blocks import (attn_decode, attn_train, dtype_of, mlp_apply,
+                     moe_apply_held)
+from .common import (NO_TP, ParamModule, SpecTree, TensorParallel,
+                     apply_norm, dense)
 from .lm import LMModel, shared_specs
 from .ssm import mamba2_train
 
@@ -168,3 +184,48 @@ class HybridModel(LMModel):
         cache = self.init_cache(B, max_seq)
         cache["length"].fill_(T)
         return cache, logits
+
+
+class HybridMoEModel(LMModel):
+    """cfg.family == "hybrid_moe" (granite-4.0-h), trained on one device."""
+
+    def _hybrid_moe_layer(self, x: torch.Tensor, layer: ParamModule,
+                          i: int) -> torch.Tensor:
+        """Layer ``i``: its mixer, then the MoE block, each branch scaled by
+        ``residual_multiplier`` into the stream."""
+        cfg = self.cfg
+        if cfg.is_attention(i):
+            mixed = attn_train(cfg, layer["mixer"], x, use_rope=not cfg.nope)
+        else:
+            mixed = mamba2_train(cfg, layer["mixer"], x)
+        x = x + mixed * cfg.residual_multiplier
+        return x + moe_apply_held(cfg, layer["ffn"], x) \
+            * cfg.residual_multiplier
+
+    def hidden_states(self, tokens: torch.Tensor, remat: bool = True
+                      ) -> torch.Tensor:
+        """tokens: (B, T) -> final hidden (B, T, D); each layer under
+        ``torch.utils.checkpoint`` where autograd records and ``remat``."""
+        if self.mesh is not None:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the hybrid_moe family runs on one device;"
+                f" its expert exchange over a mesh is not ported")
+        x = self._embed(tokens) * self.cfg.embedding_multiplier
+        remat = remat and torch.is_grad_enabled()
+        for i, layer in enumerate(self.layers):
+            if remat:
+                x = checkpoint(self._hybrid_moe_layer, x, layer, i,
+                               use_reentrant=False)
+            else:
+                x = self._hybrid_moe_layer(x, layer, i)
+        return apply_norm(self.cfg.norm, x, self._top("final_norm"))
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        return super().logits(hidden) / self.cfg.logits_scaling
+
+    def _no_serving(self, *args, **kwargs):
+        raise NotImplementedError(
+            f"{self.cfg.name}: prefill and decode of the hybrid_moe family "
+            f"are not ported; it trains only")
+
+    cache_specs = init_cache = decode_step = prefill = _no_serving

@@ -8,8 +8,10 @@ expert block, ``blocks.moe_apply``) and ``family="ssm"`` with either mixer
 parameter tree under the same leaf names (``embed``, ``final_norm``,
 ``layers.<i>.mixer``/``ffn``, ``lm_head`` when the head is untied), the
 same forward, loss, prefill and decode.  ``family="hybrid"`` (zamba2) is
-``HybridModel`` in ``hybrid.py`` and ``family="encdec"`` (whisper) is
-``EncDecModel`` in ``encdec.py``, both built on this class.  Where the JAX
+``HybridModel`` in ``hybrid.py``, ``family="hybrid_moe"`` (granite-4.0-h,
+whose layers' mixers differ by index: ``layer_specs(cfg, i)``) is
+``HybridMoEModel`` there too, and ``family="encdec"`` (whisper) is
+``EncDecModel`` in ``encdec.py``, all built on this class.  Where the JAX
 package stacks a leading layer axis and scans, the port keeps one
 ``ParamModule`` per layer in a ``ModuleList`` and loops; ``jax.checkpoint``
 of a layer (``remat``) becomes ``torch.utils.checkpoint``.  Caches are
@@ -62,7 +64,7 @@ from .ssm import (mamba2_cache_specs, mamba2_decode, mamba2_specs,
                   rwkv6_train)
 
 #: the families of the model zoo, every one of which the port runs
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec", "hybrid_moe")
 
 
 def _is_rwkv(cfg: ArchConfig) -> bool:
@@ -104,10 +106,14 @@ def top_specs(cfg: ArchConfig) -> SpecTree:
     return top
 
 
-def layer_specs(cfg: ArchConfig) -> SpecTree:
-    """One layer's parameters: the mixer, and the MLP (an MoE block for
+def layer_specs(cfg: ArchConfig, i: int) -> SpecTree:
+    """Layer ``i``'s parameters: the mixer, and the MLP (an MoE block for
     the moe family; an SSM config without ``d_ff`` has none; a hybrid
-    backbone layer has none)."""
+    backbone layer has none).  A hybrid_moe layer is attention or Mamba2
+    by its index (``cfg.is_attention``), then an MoE block."""
+    if cfg.family == "hybrid_moe":
+        return {"mixer": attn_specs(cfg) if cfg.is_attention(i)
+                else mamba2_specs(cfg), "ffn": moe_specs(cfg)}
     if cfg.family in ("ssm", "hybrid"):
         out = {"mixer": rwkv6_specs(cfg) if _is_rwkv(cfg)
                else mamba2_specs(cfg)}
@@ -136,9 +142,8 @@ def param_specs(cfg: ArchConfig) -> Dict[str, Spec]:
         from .encdec import param_specs as encdec_param_specs
         return encdec_param_specs(cfg)
     out = dict(flat_specs(top_specs(cfg)))
-    layer = list(flat_specs(layer_specs(cfg)))
     for i in range(cfg.n_layers):
-        out.update((f"layers.{i}.{n}", s) for n, s in layer)
+        out.update(flat_specs(layer_specs(cfg, i), f"layers.{i}."))
     if cfg.family == "hybrid":
         out.update(flat_specs(shared_specs(cfg), "shared."))
     return out
@@ -168,8 +173,8 @@ class LMModel(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         self.top = ParamModule(top_specs(cfg), dev)
-        self.layers = nn.ModuleList(ParamModule(layer_specs(cfg), dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(ParamModule(layer_specs(cfg, i), dev)
+                                    for i in range(cfg.n_layers))
 
     def params(self) -> Dict[str, torch.Tensor]:
         """The parameters by name (the JAX tree's paths, one entry a layer)."""

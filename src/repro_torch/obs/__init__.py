@@ -80,6 +80,8 @@ Gauges:
       tiling candidates per layer
   ``planner.lattice_points``
       total lattice points in the DP
+  ``moe.load_max_over_mean``
+      a held-expert block's busiest expert's rows over the held experts' mean
 Histograms:
   ``train.backoff_s``
       supervisor restart backoff delays
@@ -126,6 +128,8 @@ Spans:
       wait for the answers, copy them back, split them
   ``train.step``
       one traced training step
+  ``moe.experts``
+      a held-expert block's routing, sort, grouped products and combine, and its grouped products' backward (a torch.profiler range)
 -- end generated --
 
 The disabled path is a hard no-op: one module-level flag, no event dicts, no

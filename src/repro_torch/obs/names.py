@@ -59,6 +59,8 @@ GAUGES: Dict[str, Tuple[Tuple[str, ...], str]] = {
     "planner.dataflow_candidates": ((), "dataflow candidates per layer"),
     "planner.tiling_candidates": ((), "tiling candidates per layer"),
     "planner.lattice_points": ((), "total lattice points in the DP"),
+    "moe.load_max_over_mean": ((), "a held-expert block's busiest expert's "
+                                   "rows over the held experts' mean"),
 }
 
 HISTOGRAMS: Dict[str, Tuple[Tuple[str, ...], str]] = {
@@ -89,6 +91,9 @@ SPANS: Dict[str, str] = {
     "serve.h2d": "the assembled batch's host-to-device copy",
     "serve.collect": "wait for the answers, copy them back, split them",
     "train.step": "one traced training step",
+    "moe.experts": "a held-expert block's routing, sort, grouped products "
+                   "and combine, and its grouped products' backward (a "
+                   "torch.profiler range)",
 }
 
 # kind tag (as reported in lint messages) -> registry

@@ -495,8 +495,10 @@ def test_linear_scan_constants_mirror_the_source():
     assert (int(consts["kChunk"]), int(consts["kSub"])) == (lk.CHUNK, lk.SUB)
     assert f"__launch_bounds__(kThreads, kMinBlocks)\n{lk.KERNEL}(" in src
     for d in lk.HEAD_DIMS:
-        assert f"case {d}: return launch_dims" in src
         assert f"case {d}: return launch_dv" in src
+    for d in lk.DV_DIMS:
+        assert f"case {d}: return launch_dims" in src
+    assert "return launch_dims<T, 128, 64>" in src
     # one launch a call of 256 threads, two CTAs an SM; S between the 4
     # blocks of 16 rows by 6 pairs of 16 tiles of 4 x 4, inside them by 4
     # blocks of 10 tiles, 4 lanes a tile
